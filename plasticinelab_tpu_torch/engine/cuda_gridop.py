@@ -1,0 +1,148 @@
+"""Grid update: plain PyTorch version and the CUDA kernel.
+
+Replaces the forward of the TPU kernel K8,
+`plasticinelab_tpu/engine/pallas_gridop.py:_fwd_kernel` (:82), which runs
+`plasticinelab_tpu/engine/mpm.py:grid_op_core` (:193-255) per cell. The
+plain version follows `mpm.py:grid_op` (:133-190) on the full grid (crop
+offset 0): mass normalise, gravity x 30, per-primitive SDF collision with
+friction and softness at poses f and f+1, walls with bound 3, ground
+friction with the reference's 1e-30 tie-breakers, and the velocity clamp.
+
+On the H100 the pass reads 16 B and writes 12 B per cell (262,144 cells at
+64^3), a few MB that stay in L2; the cost is the arithmetic of the SDF,
+normal and contact response per primitive. `csrc/gridop.cu` runs one thread
+per cell, returns early for cells without mass (their output is 0 either
+way), and computes the normal and the contact response only where the
+reference's contact condition holds, which is a thin shell around each
+primitive. The primitives come in as a small table passed by value (shape
+id and parameters) and a (k, 16) device tensor of the poses at f and f+1.
+
+The wrapper takes the plain version only for a CPU tensor; for a CUDA
+tensor it launches the kernel (float32, contiguous) or raises. `launches`
+counts kernel launches.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ..config.spec import SceneSpec
+from . import cuda_build as cb
+from . import primitives as prim
+
+launches = {"grid_op": 0}
+
+SHAPE_IDS = {"Sphere": 0, "Capsule": 1, "RollingPin": 1, "Chopsticks": 2,
+             "Cylinder": 3, "Torus": 4, "Box": 5}
+
+
+def reset_launches() -> None:
+    launches["grid_op"] = 0
+
+
+def grid_coords(G: int, device) -> torch.Tensor:
+    """(G^3, 3) int64 cell coordinates, x-major like the flat grids."""
+    r = torch.arange(G, device=device)
+    return torch.stack(torch.meshgrid(r, r, r, indexing="ij"), dim=-1).reshape(-1, 3)
+
+
+def grid_op_plain(scene: SceneSpec, grid4, pose_f, pose_f1, softness):
+    """grid4 (G^3, 4) [mom x, y, z, mass] -> grid velocities (G^3, 3)
+    (reference grid_op :189-221). pose_f / pose_f1: (pos (k,3), rot (k,4),
+    gap (k,)) at the substep's start and end."""
+    sim = scene.simulator
+    G, dt, dtype = sim.n_grid, sim.dt, grid4.dtype
+    grid_m = grid4[:, 3]
+    mask = grid_m > 1e-12
+    v = grid4[:, :3] / torch.where(mask, grid_m, torch.ones_like(grid_m))[:, None]
+    v = v + dt * torch.tensor(sim.gravity, dtype=dtype, device=grid4.device) * 30.0
+
+    coords = grid_coords(G, grid4.device)
+    coord_f = coords.to(dtype)
+    grid_pos = coord_f * sim.dx
+    pos_f, rot_f, gap_f = pose_f
+    pos_f1, rot_f1, _ = pose_f1
+    for i, p in enumerate(scene.primitives):
+        v = prim.collide(p, pos_f[i], rot_f[i], gap_f[i], pos_f1[i], rot_f1[i],
+                         p.friction, softness, grid_pos, v, dt)
+
+    bound = 3
+    gf = sim.ground_friction
+    v = v.clone()
+    for d in range(3):
+        cd = coords[:, d]
+        low = (cd < bound) & (v[:, d] < 0)
+        if d != 1 or gf == 0:
+            v[:, d] = torch.where(low, torch.zeros_like(v[:, d]), v[:, d])
+        elif gf < 10:
+            # Coulomb-like ground friction (reference :206-215), with its
+            # 1e-30 tie-breakers (normal floats in f32)
+            lin = v[:, 1] + 1e-30
+            e_y = torch.tensor([0.0, 1.0, 0.0], dtype=dtype, device=v.device)
+            vit = v - lin[:, None] * e_y - coord_f * 1e-30
+            lit = torch.sqrt(torch.sum(vit * vit, dim=-1) + 1e-8)
+            scale = torch.clamp(1.0 + gf * lin / lit, min=0.0)
+            fric_v = scale[:, None] * (vit + coord_f * 1e-30)
+            fric_v[:, 1] = 0.0
+            v = torch.where(low[:, None], fric_v, v)
+        else:
+            v = torch.where(low[:, None], torch.zeros_like(v), v)
+        high = (cd > G - bound) & (v[:, d] > 0)
+        v[:, d] = torch.where(high, torch.zeros_like(v[:, d]), v[:, d])
+
+    if sim.grid_v_clamp > 0:
+        vmax = sim.grid_v_clamp * sim.dx / sim.dt
+        v = torch.clamp(v, -vmax, vmax)
+    # cells with no mass keep zero velocity (reference only writes masked cells)
+    return torch.where(mask[:, None], v, torch.zeros_like(v))
+
+
+@functools.lru_cache(maxsize=None)
+def prim_table(primitives) -> cb.PrimTable:
+    """Static parameters of a scene's primitives, in csrc/gridop.cu order."""
+    if len(primitives) > cb.MAX_PRIMS:
+        raise ValueError(f"the grid kernel takes at most {cb.MAX_PRIMS} primitives")
+    t = cb.PrimTable()
+    t.k = len(primitives)
+    for i, p in enumerate(primitives):
+        t.shape[i] = SHAPE_IDS[p.shape]
+        vals = (p.friction, p.radius, p.h, p.r, p.tx, p.ty, *p.size, p.minimal_gap)
+        for j, val in enumerate(vals):
+            t.param[i][j] = val
+    return t
+
+
+def pack_poses(pose_f, pose_f1) -> torch.Tensor:
+    """(k, 16) rows [pos_f 3, rot_f 4, gap_f, pos_f1 3, rot_f1 4, gap_f1]
+    (the layout of `pallas_gridop._unpack_poses`, gaps inlined)."""
+    (p0, r0, g0), (p1, r1, g1) = pose_f, pose_f1
+    return torch.cat([p0, r0, g0[:, None], p1, r1, g1[:, None]], dim=1)
+
+
+def grid_op(scene: SceneSpec, grid4, pose_f, pose_f1, softness: float):
+    """-> grid_v (G^3, 3); the K8 forward kernel on CUDA, the plain version
+    on the CPU."""
+    G = scene.simulator.n_grid
+    k = len(scene.primitives)
+    cb.require(grid4, "grid4", (G ** 3, 4), grid4.device)
+    for pose in (pose_f, pose_f1):
+        for t, name, shape in zip(pose, ("pos", "rot", "gap"), ((k, 3), (k, 4), (k,))):
+            cb.require(t, name, shape, grid4.device)
+    if grid4.device.type == "cpu":
+        return grid_op_plain(scene, grid4, pose_f, pose_f1, softness)
+    cb.require_kernel_input(grid4, "grid4")
+    poses = pack_poses(pose_f, pose_f1)
+    cb.require_kernel_input(poses, "poses")
+    sim = scene.simulator
+    out = torch.empty((G ** 3, 3), device=grid4.device, dtype=torch.float32)
+    g30 = [sim.dt * g * 30.0 for g in sim.gravity]
+    vmax = sim.grid_v_clamp * sim.dx / sim.dt if sim.grid_v_clamp > 0 else 0.0
+    err = cb.library().plb_grid_op(
+        grid4.data_ptr(), poses.data_ptr(), out.data_ptr(),
+        prim_table(scene.primitives), G, sim.dx, sim.dt, float(softness),
+        *g30, sim.ground_friction, vmax, grid4.device.index,
+        cb.stream_of(grid4))
+    cb.check(err, "grid_op")
+    launches["grid_op"] += 1
+    return out

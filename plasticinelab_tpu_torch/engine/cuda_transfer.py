@@ -1,0 +1,142 @@
+"""Particle<->grid transfers: plain PyTorch versions and the CUDA kernels.
+
+Replaces the TPU kernels
+- K3 `plasticinelab_tpu/engine/pallas_local.py:_p2g_fwd_kernel` (:163),
+- K7 forward `pallas_local.py:_mass_fwd_kernel` (:943), the mass-only P2G
+  of the loss, here the `MASS_ONLY` instantiation of the same P2G kernel,
+- K5 `pallas_local.py:_g2p_fwd_kernel` (:223), G2P with fused advection.
+
+The TPU kernels contract per-axis weight matrices on the MXU inside a
+cropped, cell-sorted window layout, because a TPU has no fast scatter. On
+the H100 the natural form is the reference's own: one thread per particle,
+27 stencil cells (`csrc/transfer.cu`).
+- P2G is bound by the float atomics into the grid (27 cells x 4 channels per
+  particle, contended where particles share cells). The full 64^3 x 4 grid
+  is 4 MB and stays in the 50 MB L2, so the atomics resolve there.
+- G2P is bound by the latency of its 27 dependent gathers per particle; the
+  grid is read-only and L2-resident.
+- Atomics sum in a run-dependent order, so P2G and everything downstream
+  is not bitwise reproducible (the TPU transfers are). The tests bound the
+  difference to the plain version instead.
+
+Each wrapper takes its plain version only for a CPU tensor; for a CUDA
+tensor it launches its kernel (float32, contiguous) or raises. `launches`
+counts kernel launches per wrapper.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..config.spec import SceneSpec
+from . import cuda_build as cb
+from .transfer import stencil
+
+launches = {"p2g": 0, "grid_mass": 0, "g2p": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def p2g_plain(scene: SceneSpec, x, v, affine):
+    """APIC momentum + mass P2G -> (G^3, 4) [mom x, y, z, mass]:
+    mom_s = sum_p W (p_mass v_s + dx affine_s . dpos), mass = sum_p W p_mass
+    (reference p2g :157-184)."""
+    sim = scene.simulator
+    idx, W, dpos = stencil(scene, x)
+    mom = sim.p_mass * v[:, None, :] + sim.dx * torch.einsum("nij,nkj->nki", affine, dpos)
+    contrib = torch.cat([W[..., None] * mom, (W * sim.p_mass)[..., None]], dim=-1)
+    grid = x.new_zeros((sim.n_grid ** 3, 4))
+    return grid.index_add_(0, idx.reshape(-1), contrib.reshape(-1, 4))
+
+
+def grid_mass_plain(scene: SceneSpec, x):
+    """Mass-only P2G -> (G^3,) (reference compute_grid_m_kernel :382-392)."""
+    sim = scene.simulator
+    idx, W, _ = stencil(scene, x)
+    grid = x.new_zeros((sim.n_grid ** 3,))
+    return grid.index_add_(0, idx.reshape(-1), (W * sim.p_mass).reshape(-1))
+
+
+def g2p_plain(scene: SceneSpec, x, grid_v):
+    """Velocity gather, APIC C and advection -> (new_v (n,3), new_C (n,3,3),
+    new_x (n,3)): v = sum W g, C = 4 inv_dx sum W g dpos^T, x' = clip(x + dt
+    v, 0, 1 - 3 dx) (reference g2p :223-243, `mpm.py:351-353`)."""
+    sim = scene.simulator
+    idx, W, dpos = stencil(scene, x)
+    g = grid_v[idx]  # (n, 27, 3)
+    new_v = torch.sum(W[..., None] * g, dim=1)
+    new_C = (4.0 * sim.inv_dx) * torch.einsum("nj,njs,nja->nsa", W, g, dpos)
+    new_x = torch.clamp(x + sim.dt * new_v, min=0.0, max=1.0 - 3 * sim.dx)
+    return new_v, new_C, new_x
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def p2g(scene: SceneSpec, x, v, affine):
+    """-> grid4 (G^3, 4); the K3 kernel on CUDA, `p2g_plain` on the CPU."""
+    n = x.shape[0]
+    for t, name, shape in ((x, "x", (n, 3)), (v, "v", (n, 3)),
+                           (affine, "affine", (n, 3, 3))):
+        cb.require(t, name, shape, x.device)
+    if x.device.type == "cpu":
+        return p2g_plain(scene, x, v, affine)
+    for t, name in ((x, "x"), (v, "v"), (affine, "affine")):
+        cb.require_kernel_input(t, name)
+    sim = scene.simulator
+    grid = torch.zeros((sim.n_grid ** 3, 4), device=x.device, dtype=torch.float32)
+    err = cb.library().plb_p2g(
+        x.data_ptr(), v.data_ptr(), affine.data_ptr(), grid.data_ptr(), n,
+        sim.n_grid, sim.inv_dx, sim.dx, sim.p_mass, x.device.index,
+        cb.stream_of(x))
+    cb.check(err, "p2g")
+    launches["p2g"] += 1
+    return grid
+
+
+def grid_mass(scene: SceneSpec, x):
+    """-> grid_m (G^3,); the mass-only P2G kernel (K7 forward) on CUDA,
+    `grid_mass_plain` on the CPU."""
+    n = x.shape[0]
+    cb.require(x, "x", (n, 3), x.device)
+    if x.device.type == "cpu":
+        return grid_mass_plain(scene, x)
+    cb.require_kernel_input(x, "x")
+    sim = scene.simulator
+    grid = torch.zeros((sim.n_grid ** 3,), device=x.device, dtype=torch.float32)
+    err = cb.library().plb_grid_mass(
+        x.data_ptr(), grid.data_ptr(), n, sim.n_grid, sim.inv_dx, sim.p_mass,
+        x.device.index, cb.stream_of(x))
+    cb.check(err, "grid_mass")
+    launches["grid_mass"] += 1
+    return grid
+
+
+def g2p(scene: SceneSpec, x, grid_v):
+    """-> (new_v, new_C, new_x); the K5 kernel on CUDA, `g2p_plain` on the
+    CPU."""
+    n = x.shape[0]
+    sim = scene.simulator
+    cb.require(x, "x", (n, 3), x.device)
+    cb.require(grid_v, "grid_v", (sim.n_grid ** 3, 3), x.device)
+    if x.device.type == "cpu":
+        return g2p_plain(scene, x, grid_v)
+    cb.require_kernel_input(x, "x")
+    cb.require_kernel_input(grid_v, "grid_v")
+    new_v = torch.empty((n, 3), device=x.device, dtype=torch.float32)
+    new_C = torch.empty((n, 3, 3), device=x.device, dtype=torch.float32)
+    new_x = torch.empty((n, 3), device=x.device, dtype=torch.float32)
+    err = cb.library().plb_g2p(
+        x.data_ptr(), grid_v.data_ptr(), new_v.data_ptr(), new_C.data_ptr(),
+        new_x.data_ptr(), n, sim.n_grid, sim.inv_dx, sim.dt,
+        1.0 - 3 * sim.dx, x.device.index, cb.stream_of(x))
+    cb.check(err, "g2p")
+    launches["g2p"] += 1
+    return new_v, new_C, new_x

@@ -1,0 +1,117 @@
+"""MLS-MPM env step with von Mises plasticity, forward only.
+
+Counterpart of `plasticinelab_tpu/engine/mpm.py:837-932` (`make_controls`,
+`substep`, `env_step`, `env_step_with_grid_m`). Behavioral reference:
+plb/engine/mpm_simulator.py (p2g 157-184, grid_op 189-221, g2p 223-243,
+substep 245-257, step 365-376).
+
+A substep runs, in order:
+1. stress: `cuda_stress.stress_affine` (TPU kernel K1),
+2. P2G: `cuda_transfer.p2g` (K3),
+3. forward kinematics of the primitives (plain tensor code),
+4. grid update: `cuda_gridop.grid_op` (K8),
+5. G2P with advection: `cuda_transfer.g2p` (K5).
+An env step is a Python loop of `substeps` substeps; `env_step_with_grid_m`
+adds the mass-only P2G of the final positions for the loss
+(`cuda_transfer.grid_mass`, K7 forward). Each of these dispatches to its
+CUDA kernel for CUDA tensors and to its plain version on the CPU.
+`PLAIN_OPS` runs the same steps through the plain versions on any device,
+to hold the kernels against them.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..config.spec import SceneSpec
+from . import cuda_gridop, cuda_stress, cuda_transfer
+from . import primitives as prim
+from .state import Controls, Materials, SimState
+
+__all__ = ["Ops", "KERNEL_OPS", "PLAIN_OPS", "make_controls", "substep",
+           "env_step", "env_step_with_grid_m"]
+
+
+class Ops(NamedTuple):
+    """The per-substep operations of an env step."""
+
+    stress_affine: Callable
+    p2g: Callable
+    grid_op: Callable
+    g2p: Callable
+    grid_mass: Callable
+
+
+KERNEL_OPS = Ops(cuda_stress.stress_affine, cuda_transfer.p2g,
+                 cuda_gridop.grid_op, cuda_transfer.g2p, cuda_transfer.grid_mass)
+PLAIN_OPS = Ops(cuda_stress.stress_affine_plain, cuda_transfer.p2g_plain,
+                cuda_gridop.grid_op_plain, cuda_transfer.g2p_plain,
+                cuda_transfer.grid_mass_plain)
+
+
+def make_controls(scene: SceneSpec, action, device, dtype) -> Controls:
+    """Full action vector (action_dim,) -> per-substep Controls, clipped to
+    [-1, 1] (reference primitives.py:289-293). action None means zeros."""
+    n_sub = scene.simulator.substeps
+    offs = scene.action_dims
+    if action is not None:
+        action = torch.clamp(
+            torch.as_tensor(action, dtype=dtype, device=device).reshape(-1), -1.0, 1.0)
+    vs, ws, gs = [], [], []
+    for i, p in enumerate(scene.primitives):
+        if action is None or p.action_dim == 0:
+            a = torch.zeros((max(p.action_dim, 1),), dtype=dtype, device=device)
+        else:
+            a = action[offs[i]: offs[i + 1]]
+        v, w, g = prim.action_to_velocity(p, a, n_sub)
+        vs.append(v)
+        ws.append(w)
+        gs.append(g)
+    if not scene.primitives:
+        z3 = torch.zeros((0, 3), dtype=dtype, device=device)
+        return Controls(v=z3, w=z3, gap_vel=torch.zeros((0,), dtype=dtype, device=device))
+    return Controls(v=torch.stack(vs), w=torch.stack(ws), gap_vel=torch.stack(gs))
+
+
+def fk_step(scene: SceneSpec, poses, ctrl: Controls):
+    """Forward kinematics of all primitives: poses (pos, rot, gap) at f ->
+    at f+1."""
+    if not scene.primitives:
+        return poses
+    pos_f, rot_f, gap_f = poses
+    out = [prim.forward_kinematics(p, pos_f[i], rot_f[i], gap_f[i], ctrl.v[i],
+                                   ctrl.w[i], ctrl.gap_vel[i])
+           for i, p in enumerate(scene.primitives)]
+    return tuple(torch.stack([o[j] for o in out]) for j in range(3))
+
+
+def substep(scene: SceneSpec, mats: Materials, state: SimState, ctrl: Controls,
+            softness: float, ops: Ops = KERNEL_OPS) -> SimState:
+    """One MLS-MPM substep (reference substep :245-257)."""
+    new_F, affine = ops.stress_affine(scene, mats, state.C, state.F)
+    grid4 = ops.p2g(scene, state.x, state.v, affine)
+    pose_f = (state.prim_pos, state.prim_rot, state.prim_gap)
+    pose_f1 = fk_step(scene, pose_f, ctrl)
+    grid_v = ops.grid_op(scene, grid4, pose_f, pose_f1, softness)
+    new_v, new_C, new_x = ops.g2p(scene, state.x, grid_v)
+    return SimState(x=new_x, v=new_v, C=new_C, F=new_F, prim_pos=pose_f1[0],
+                    prim_rot=pose_f1[1], prim_gap=pose_f1[2])
+
+
+def env_step(scene: SceneSpec, mats: Materials, state: SimState, action,
+             softness: float, ops: Ops = KERNEL_OPS) -> SimState:
+    """One environment step = `substeps` substeps under constant manipulator
+    velocities (reference MPMSimulator.step :365-376)."""
+    ctrl = make_controls(scene, action, state.x.device, state.x.dtype)
+    for _ in range(scene.simulator.substeps):
+        state = substep(scene, mats, state, ctrl, softness, ops)
+    return state
+
+
+def env_step_with_grid_m(scene: SceneSpec, mats: Materials, state: SimState,
+                         action, softness: float, ops: Ops = KERNEL_OPS):
+    """env_step plus the final state's grid mass for the loss:
+    (new_state, grid_m (G^3,))."""
+    state = env_step(scene, mats, state, action, softness, ops)
+    return state, ops.grid_mass(scene, state.x)

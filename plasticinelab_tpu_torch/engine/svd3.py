@@ -1,0 +1,142 @@
+"""Batched 3x3 SVD by cyclic Jacobi, forward only.
+
+Counterpart of the forward of `plasticinelab_tpu/engine/svd3.py`
+(`_svd3_fwd_impl`): eigendecomposition of F^T F by 6 cyclic Jacobi sweeps
+with the scale-invariant hypot and the stable half-angles, a 3-element sort
+network (descending), det(V) = +1 by flipping V's last column, U by a
+Gram-Schmidt with fallbacks, and signed singular values (McAdams
+convention: det(U) = det(V) = +1, the sign lands on the smallest value, so
+R = U V^T is a proper rotation). `torch.linalg.svd` follows other sort and
+sign conventions, so it is not used. The CUDA stress kernel
+(`csrc/stress.cu`) runs the same steps per particle; the damped-eigengap
+backward comes with the backward slice.
+
+Matrices are handled as nested lists of (n,) component tensors, so every
+operation is elementwise over the particle batch.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["svd3"]
+
+_N_SWEEPS = 6  # cyclic Jacobi sweeps; 3x3 converges quadratically
+
+
+def _jacobi_rotation(a, v, p, q):
+    """One Jacobi rotation zeroing a[(p,q)]. `a`: the 6 unique components of
+    the symmetric matrix keyed (i<=j); `v`: the 9 eigenvector components."""
+    r = 3 - p - q
+    app, aqq, apq = a[(p, p)], a[(q, q)], a[(p, q)]
+    # tan(2t) = 2*apq/(aqq-app) through the half-angle identities
+    y = 2.0 * apq
+    z = aqq - app
+    # scale-invariant normalization before the hypot: y^2+z^2 never
+    # underflows to a denormal
+    m = torch.maximum(torch.abs(y), torch.abs(z))
+    ok = torch.abs(y) > 0  # apq == 0 -> identity rotation
+    m_safe = torch.where(m > 0, m, torch.ones_like(m))
+    ym = y / m_safe
+    zm = z / m_safe
+    rinv = torch.rsqrt(torch.clamp(ym * ym + zm * zm, min=1e-30))
+    cos2t = zm * rinv
+    sin2t = ym * rinv
+    # stable half-angles: the larger of (c, s) from its sqrt form, the other
+    # from sin2t = 2 c s
+    c_raw = torch.sqrt(torch.clamp((1.0 + cos2t) * 0.5, min=1e-30))
+    s_raw = torch.sqrt(torch.clamp((1.0 - cos2t) * 0.5, min=1e-30))
+    pos_branch = cos2t >= 0
+    c = torch.where(pos_branch, c_raw, torch.abs(sin2t) * 0.5 / s_raw)
+    s = torch.where(pos_branch, sin2t * 0.5 / c_raw, torch.sign(sin2t) * s_raw)
+    c = torch.where(ok, c, torch.ones_like(c))
+    s = torch.where(ok, s, torch.zeros_like(s))
+    cc, ss, cs = c * c, s * s, c * s
+
+    kpr = (min(p, r), max(p, r))
+    kqr = (min(q, r), max(q, r))
+    apr, aqr = a[kpr], a[kqr]
+    a = dict(a)
+    a[(p, p)] = cc * app - 2.0 * cs * apq + ss * aqq
+    a[(q, q)] = ss * app + 2.0 * cs * apq + cc * aqq
+    a[(p, q)] = cs * (app - aqq) + (cc - ss) * apq
+    a[kpr] = c * apr - s * aqr
+    a[kqr] = s * apr + c * aqr
+
+    v = dict(v)
+    for i in range(3):
+        vip, viq = v[(i, p)], v[(i, q)]
+        v[(i, p)] = c * vip - s * viq
+        v[(i, q)] = s * vip + c * viq
+    return a, v
+
+
+def _dot3(x, y):
+    return x[0] * y[0] + x[1] * y[1] + x[2] * y[2]
+
+
+def _cross(x, y):
+    return [x[1] * y[2] - x[2] * y[1],
+            x[2] * y[0] - x[0] * y[2],
+            x[0] * y[1] - x[1] * y[0]]
+
+
+def _safe_normalize(x, fallback):
+    n2 = _dot3(x, x)
+    ok = n2 > 1e-16
+    inv = torch.rsqrt(torch.where(ok, n2, torch.ones_like(n2)))
+    return [torch.where(ok, x[i] * inv, fallback[i]) for i in range(3)]
+
+
+def svd3(F: torch.Tensor):
+    """Batched SVD of (n, 3, 3): returns (U (n,3,3), sigma (n,3), V (n,3,3))
+    with F = U diag(sigma) V^T."""
+    Fc = [[F[:, i, j] for j in range(3)] for i in range(3)]
+    one = torch.ones_like(Fc[0][0])
+    zero = torch.zeros_like(one)
+
+    # A = F^T F
+    a = {(i, j): sum(Fc[k][i] * Fc[k][j] for k in range(3))
+         for i in range(3) for j in range(3) if i <= j}
+    v = {(i, j): (one if i == j else zero) for i in range(3) for j in range(3)}
+    for _ in range(_N_SWEEPS):
+        for (p, q) in ((0, 1), (0, 2), (1, 2)):
+            a, v = _jacobi_rotation(a, v, p, q)
+    w = [a[(0, 0)], a[(1, 1)], a[(2, 2)]]
+    V = [[v[(i, j)] for j in range(3)] for i in range(3)]
+
+    def cswap(i, j):
+        swap = w[i] < w[j]
+        w[i], w[j] = torch.where(swap, w[j], w[i]), torch.where(swap, w[i], w[j])
+        for rr in range(3):
+            V[rr][i], V[rr][j] = (torch.where(swap, V[rr][j], V[rr][i]),
+                                  torch.where(swap, V[rr][i], V[rr][j]))
+
+    cswap(0, 1)
+    cswap(0, 2)
+    cswap(1, 2)
+
+    col = lambda M, j: [M[0][j], M[1][j], M[2][j]]  # noqa: E731
+    detV = _dot3(_cross(col(V, 0), col(V, 1)), col(V, 2))
+    flip = torch.where(detV < 0, -one, one)
+    for rr in range(3):
+        V[rr][2] = V[rr][2] * flip
+
+    FV = [[sum(Fc[i][k] * V[k][j] for k in range(3)) for j in range(3)]
+          for i in range(3)]
+    e0, e1, e2 = [one, zero, zero], [zero, one, zero], [zero, zero, one]
+    u0 = _safe_normalize(col(FV, 0), e0)
+    # u1: Gram-Schmidt against u0, with an orthogonal fallback for rank<2 F
+    raw1 = col(FV, 1)
+    d01 = _dot3(raw1, u0)
+    raw1 = [raw1[i] - d01 * u0[i] for i in range(3)]
+    near_y = torch.abs(u0[1]) < 0.9
+    alt = [torch.where(near_y, e1[i], e2[i]) for i in range(3)]
+    dalt = _dot3(alt, u0)
+    alt = _safe_normalize([alt[i] - dalt * u0[i] for i in range(3)], e1)
+    u1 = _safe_normalize(raw1, alt)
+    u2 = _cross(u0, u1)  # det(U) = +1 by construction
+    U = [[u0[i], u1[i], u2[i]] for i in range(3)]
+    sig = [_dot3(col(FV, j), col(U, j)) for j in range(3)]
+
+    stack33 = lambda M: torch.stack([torch.stack(r, dim=-1) for r in M], dim=-2)  # noqa: E731
+    return stack33(U), torch.stack(sig, dim=-1), stack33(V)

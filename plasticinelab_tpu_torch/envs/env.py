@@ -1,0 +1,94 @@
+"""Gym-style environment over PhysicsEnv, state observations.
+
+Counterpart of `plasticinelab_tpu/envs/env.py` with `obs_mode="state"`.
+Behavioral reference: plb/envs/env.py (obs layout :33-41, reward :43-57 via
+loss deltas, NaN crash-dump guard :50-56). It keeps the gymnasium surface
+(`reset`, `step` -> (obs, reward, terminated, truncated, info),
+`action_space.shape`, `observation_space.shape`, `unwrapped`) without
+depending on gymnasium, which the GPU machines do not carry; the episode
+limit of gymnasium's TimeLimit wrapper is kept here as `truncated`.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import pickle
+from typing import Optional, Tuple
+
+import numpy as np
+
+from ..config.loader import load_scene
+from ..config.spec import SceneSpec
+from ..engine.sim import PhysicsEnv
+
+# resolved task specs are read from the TPU package's directory, by path
+SPEC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
+                        "plasticinelab_tpu", "envs", "specs")
+
+
+class Box:
+    """A box-shaped space: `shape`, `low`, `high`, `dtype`, `sample()`."""
+
+    def __init__(self, low: float, high: float, shape: Tuple[int, ...],
+                 dtype=np.float32, seed: Optional[int] = None):
+        self.low = np.full(shape, low, dtype=dtype)
+        self.high = np.full(shape, high, dtype=dtype)
+        self.shape = tuple(shape)
+        self.dtype = np.dtype(dtype)
+        self._rng = np.random.default_rng(seed)
+
+    def sample(self) -> np.ndarray:
+        return self._rng.uniform(self.low, self.high).astype(self.dtype)
+
+    def seed(self, seed: Optional[int] = None) -> None:
+        self._rng = np.random.default_rng(seed)
+
+
+class PlasticineEnv:
+    def __init__(self, scene: SceneSpec, device="cuda", cfg_path: str = "",
+                 max_episode_steps: int = 50):
+        self.cfg_path = cfg_path
+        self.taichi_env = PhysicsEnv(scene, device=device)
+        self.taichi_env.initialize()
+        self.taichi_env.set_copy(True)
+        self._init_state = self.taichi_env.get_state()
+        self._max_episode_steps = max_episode_steps
+        self._elapsed_steps = 0
+
+        obs, _ = self.reset()
+        self.observation_space = Box(-np.inf, np.inf, obs.shape)
+        self.action_space = Box(-1.0, 1.0, (self.taichi_env.scene.action_dim,))
+
+    @staticmethod
+    def load_scene(name: str, version: int) -> SceneSpec:
+        """Resolved task spec `<name>-v<version>.json`."""
+        return load_scene(os.path.join(SPEC_DIR, f"{name}-v{version}.json"))
+
+    @property
+    def unwrapped(self) -> "PlasticineEnv":
+        return self
+
+    # ------------------------------------------------------------------
+    def reset(self, *, seed=None, options=None):
+        if seed is not None:
+            self.action_space.seed(seed)
+        self.taichi_env.set_state(**self._init_state)
+        self._recorded_actions = []
+        self._elapsed_steps = 0
+        return self.taichi_env.get_obs(), {}
+
+    def step(self, action):
+        self.taichi_env.step(action)
+        loss_info = self.taichi_env.compute_loss()
+        self._recorded_actions.append(action)
+        self._elapsed_steps += 1
+        obs = self.taichi_env.get_obs()
+        r = loss_info["reward"]
+        if np.isnan(obs).any() or np.isnan(r):
+            if np.isnan(r):
+                print("nan in r")
+            with open(f"{self.cfg_path}_nan_action_{datetime.datetime.now()}", "wb") as f:
+                pickle.dump(self._recorded_actions, f)
+            raise FloatingPointError("NaN in the observation or the reward")
+        truncated = self._elapsed_steps >= self._max_episode_steps
+        return obs, r, False, truncated, loss_info
