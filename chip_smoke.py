@@ -14,10 +14,23 @@ Phases, each fatal on failure:
 5. slice: `make("Move-v1", device="cuda")`, `reset()`, 50 seeded steps;
    launch counts prove the steps ran through the kernels; then one env step
    through the kernels and through the plain versions from the same state.
-6. device times: each kernel and plain version under torch.profiler, after
+6. backward kernels: each backward kernel against the autograd VJP of its
+   plain version on the card, at Move-v1 shapes, seeded cotangents; the
+   grid update's backward once per primitive shape and for the walls and
+   the three ground regimes, its pose cotangents compared too;
+7. gradient: 5 Move-v1 env steps through the kernels and through the plain
+   versions from the same state (loss and d/d actions); a 2-step Move-v1
+   loss and gradient against values computed by the reference package; the
+   50-step trajectory gradient `rollout_value_and_grad` at bench.py's
+   actions, whose launch counts prove it ran through the backward kernels,
+   timed, with its peak memory and remat policy;
+8. solve: `Solver.solve_device`, 3 Adam iterations on Move-v1, horizon 50;
+9. device times: each kernel and plain version under torch.profiler, after
    the slice (an active profiler slows every later launch).
 Prints a JSON line of the kernels (`ms` and `plain_ms`: device time per call
-from torch.profiler), then as the last line {"ok": true, "device": {...}}.
+from torch.profiler; for a backward kernel, the plain version's time is that
+of its autograd backward alone), then as the last line {"ok": true,
+"device": {...}}.
 """
 import json
 import subprocess
@@ -67,12 +80,54 @@ REF_REWARD = 0.000293731689453125
 REF_TOL = 1e-4
 REF_REWARD_ATOL = 2e-5
 
+# Backward kernels vs the autograd VJP of the plain version, both float32 on
+# the card, relative to the largest |value| of the plain VJP:
+# - stress: the SVD adjoint multiplies rounding by the damped inverse
+#   eigengap (up to 1/(2 * 1e-3) at near-repeated singular values);
+# - transfers: sums of 27 stencil terms in another order (K6 and the plain
+#   version scatter with atomics);
+# - grid update: d grid4 divides by the cell mass (tiny at the cloud's edge,
+#   so the values span many decades: it is held both to the largest value
+#   and to each cell's own; rows beyond tolerance count against FLIP_BUDGET
+#   as in the forward); the pose cotangents sum ~1e5 cell terms
+#   of both signs; for the box, whose normal is a central difference with
+#   d = 1e-4, its derivative amplifies float32 rounding by ~1/d.
+BWD_TOL = {"stress_affine_bwd": 1e-4, "p2g_bwd": 1e-5, "grid_mass_bwd": 1e-5,
+           "g2p_bwd": 1e-5, "grid_op_bwd": 1e-3}
+POSE_TOL = {"Box": 1e-2}  # else BWD_TOL["grid_op_bwd"]
+# 5 Move-v1 env steps, kernels vs plain versions from the same state and
+# actions, both float32: the loss relative, the gradient relative to its
+# largest entry (atomics reorder sums; contact amplifies the difference).
+GRAD_STEPS = 5
+GRAD_TOL = {"loss": 1e-4, "grad": 2e-2}
+# Move-v1 from reset, 2 steps of REF_GRAD_ACTIONS: the summed loss and its
+# (2, 6) gradient from the reference package (`plasticinelab_tpu`
+# PhysicsEnv.rollout_value_and_grad, float32, on the CPU). Bounds: the loss
+# to REF_TOL relative, the gradient to REF_GRAD_TOL of its largest entry:
+# the port in float64 on the CPU differs from these float32 values by
+# 3.2e-3 of the largest entry (float32 rounding through 38 substeps).
+REF_GRAD_ACTIONS = ((0.5, -0.3, 0.2, -0.4, 0.1, 0.6), (-0.2, 0.4, -0.1, 0.3, -0.5, 0.2))
+REF_GRAD_LOSS = 26.55014419555664
+REF_GRAD = ((-0.008081410080194473, -0.011613520793616772, -0.00167021993547678,
+             -0.005849147215485573, -0.011308235116302967, -0.0017285578651353717),
+            (-0.002290531760081649, -0.002143296180292964, -0.0006147465319372714,
+             -0.0016266338061541319, -0.0025938008911907673, -0.00096789380768314))
+REF_GRAD_TOL = 1e-2
+HORIZON = 50
+TRAJ_RUNS = 3
+SOLVE_ITERS = 3
+
 REPLACES = {
     "stress_affine": "plasticinelab_tpu/engine/pallas_stress.py:201",
     "p2g": "plasticinelab_tpu/engine/pallas_local.py:163",
     "grid_mass": "plasticinelab_tpu/engine/pallas_local.py:943",
     "grid_op": "plasticinelab_tpu/engine/pallas_gridop.py:82",
     "g2p": "plasticinelab_tpu/engine/pallas_local.py:223",
+    "stress_affine_bwd": "plasticinelab_tpu/engine/pallas_stress.py:222",
+    "p2g_bwd": "plasticinelab_tpu/engine/pallas_local.py:288",
+    "grid_mass_bwd": "plasticinelab_tpu/engine/pallas_local.py:970",
+    "grid_op_bwd": "plasticinelab_tpu/engine/pallas_gridop.py:97",
+    "g2p_bwd": "plasticinelab_tpu/engine/pallas_local.py:388",
 }
 SOURCES = {
     "stress_affine": "plasticinelab_tpu_torch/csrc/stress.cu",
@@ -80,6 +135,11 @@ SOURCES = {
     "grid_mass": "plasticinelab_tpu_torch/csrc/transfer.cu",
     "grid_op": "plasticinelab_tpu_torch/csrc/gridop.cu",
     "g2p": "plasticinelab_tpu_torch/csrc/transfer.cu",
+    "stress_affine_bwd": "plasticinelab_tpu_torch/csrc/stress.cu",
+    "p2g_bwd": "plasticinelab_tpu_torch/csrc/transfer.cu",
+    "grid_mass_bwd": "plasticinelab_tpu_torch/csrc/transfer.cu",
+    "grid_op_bwd": "plasticinelab_tpu_torch/csrc/gridop.cu",
+    "g2p_bwd": "plasticinelab_tpu_torch/csrc/transfer.cu",
 }
 SHAPE_PARAMS = {
     "Sphere": dict(radius=0.06),
@@ -133,9 +193,11 @@ def device_time(fn, reps=KERNEL_REPS, attempts=3):
     return None
 
 
-def compare(name, got, want, tol, flip_budget=0):
+def compare(name, got, want, tol, flip_budget=0, per_row=False):
     """Max abs / rel error of got vs want (tuples of tensors); rows (cells or
-    particles) beyond tol x max|want| count as flips, at most flip_budget."""
+    particles) beyond tol x max|want| count as flips, at most flip_budget.
+    per_row: relative to each row's own largest |want| instead, for values
+    that span many decades."""
     import torch
 
     max_abs, max_rel, flips = 0.0, 0.0, 0
@@ -145,41 +207,74 @@ def compare(name, got, want, tol, flip_budget=0):
         if not bool(torch.isfinite(g).all()):
             raise AssertionError(f"{name}: non-finite kernel output")
         scale = float(w.abs().max()) or 1.0
+        if per_row:
+            scale = w.abs().amax(dim=1).clamp(min=1e-30 * scale)
         err = (g - w).abs().amax(dim=1)
         bad = err > tol * scale
         flips += int(bad.sum())
-        good = err[~bad]
-        if good.numel():
-            max_abs = max(max_abs, float(good.max()))
-            max_rel = max(max_rel, float(good.max()) / scale)
+        good = ~bad
+        if bool(good.any()):
+            max_abs = max(max_abs, float(err[good].max()))
+            max_rel = max(max_rel, float((err / scale)[good].max()))
+    scope = "of its row" if per_row else "of the largest"
     log(f"  {name:28s} max_abs {max_abs:.3e}  max_rel {max_rel:.3e}  "
-        f"(tol {tol:.0e})  flipped rows {flips} (budget {flip_budget})")
+        f"(tol {tol:.0e} {scope})  flipped rows {flips} (budget {flip_budget})")
     if flips > flip_budget:
         raise AssertionError(f"{name}: {flips} rows beyond tolerance {tol}")
     return max_abs
 
 
-def phase_kernels():
-    import dataclasses
-
+def tensor(a):
     import torch
 
-    from plasticinelab_tpu_torch.config.spec import PrimitiveSpec
-    from plasticinelab_tpu_torch.engine import cuda_gridop, cuda_stress, cuda_transfer
+    return torch.tensor(np.asarray(a, np.float32), device=DEVICE)
+
+
+def move_scene():
+    """Move-v1's scene at its own particle count, and its initial cloud."""
     from plasticinelab_tpu_torch.engine.shapes import build_particles
-    from plasticinelab_tpu_torch.engine.state import default_materials
     from plasticinelab_tpu_torch.envs.env import PlasticineEnv
 
     scene = PlasticineEnv.load_scene("move", 1)
     x_np, _ = build_particles(scene.shapes)
-    scene = scene.with_n_particles(len(x_np))
+    return scene.with_n_particles(len(x_np)), x_np
+
+
+def test_poses(k, seed, center):
+    """Poses at f and f+1 of k primitives around center: random unit
+    rotations, a small rigid motion between the two."""
+    r = np.random.default_rng(seed)
+    pos = center + r.uniform(-0.03, 0.03, (k, 3))
+    rot = r.standard_normal((k, 4))
+    rot /= np.linalg.norm(rot, axis=1, keepdims=True)
+    gap = np.full(k, 0.06)
+    w = r.standard_normal((k, 4)) * 0.003
+    rot1 = (rot + w) / np.linalg.norm(rot + w, axis=1, keepdims=True)
+    return ((tensor(pos), tensor(rot), tensor(gap)),
+            (tensor(pos + r.normal(0, 1e-3, (k, 3))), tensor(rot1), tensor(gap - 1e-4)))
+
+
+def random_grid(rng, G):
+    """Every cell massive or empty at random, velocities O(1): the walls and
+    the three ground regimes of the 50 tasks (friction 0, < 10, >= 10)."""
+    m = rng.uniform(1e-6, 1e-4, G ** 3) * (rng.random(G ** 3) > 0.25)
+    vel = rng.standard_normal((G ** 3, 3))
+    return tensor(np.concatenate([vel * m[:, None], m[:, None]], axis=1))
+
+
+def phase_kernels():
+    import dataclasses
+
+    from plasticinelab_tpu_torch.config.spec import PrimitiveSpec
+    from plasticinelab_tpu_torch.engine import cuda_gridop, cuda_stress, cuda_transfer
+    from plasticinelab_tpu_torch.engine.state import default_materials
+
+    scene, x_np = move_scene()
     sim = scene.simulator
     n, G = len(x_np), sim.n_grid
     log(f"phase kernels: Move-v1 shapes, n={n} particles, G={G} grid, seed {SEED}")
     rng = np.random.default_rng(SEED)
-
-    def t(a):
-        return torch.tensor(np.asarray(a, np.float32), device=DEVICE)
+    t = tensor
 
     mats = default_materials(scene)
     C = t(rng.standard_normal((n, 3, 3)) * 2.0)
@@ -215,28 +310,14 @@ def phase_kernels():
     grid4 = cuda_transfer.p2g_plain(scene, x, v, sim.p_mass * C)
     center = x_np.mean(axis=0)
 
-    def poses(k_, seed):
-        r = np.random.default_rng(seed)
-        pos = center + r.uniform(-0.03, 0.03, (k_, 3))
-        rot = r.standard_normal((k_, 4))
-        rot /= np.linalg.norm(rot, axis=1, keepdims=True)
-        gap = np.full(k_, 0.06)
-        w = r.standard_normal((k_, 4)) * 0.003
-        rot1 = (rot + w) / np.linalg.norm(rot + w, axis=1, keepdims=True)
-        return (t(pos), t(rot), t(gap)), (t(pos + r.normal(0, 1e-3, (k_, 3))), t(rot1), t(gap - 1e-4))
-
     for i, (shape, kw) in enumerate(SHAPE_PARAMS.items()):
         sc = scene.replace(primitives=(PrimitiveSpec(shape=shape, friction=0.9, **kw),))
-        pf, pf1 = poses(1, 100 + i)
+        pf, pf1 = test_poses(1, 100 + i, center)
         compare(f"grid_op[{shape}]", (cuda_gridop.grid_op(sc, grid4, pf, pf1, 666.0),),
                 (cuda_gridop.grid_op_plain(sc, grid4, pf, pf1, 666.0),), TOL["grid_op"],
                 FLIP_BUDGET)
-    pf, pf1 = poses(len(scene.primitives), 99)
-    # every cell massive or empty at random, velocities O(1): the walls and
-    # the three ground regimes of the 50 tasks (friction 0, < 10, >= 10)
-    m = rng.uniform(1e-6, 1e-4, G ** 3) * (rng.random(G ** 3) > 0.25)
-    vel = rng.standard_normal((G ** 3, 3))
-    grid_rand = t(np.concatenate([vel * m[:, None], m[:, None]], axis=1))
+    pf, pf1 = test_poses(len(scene.primitives), 99, center)
+    grid_rand = random_grid(rng, G)
     for gf in (0.0, 1.5, 100.0):
         sc = scene.replace(simulator=dataclasses.replace(sim, ground_friction=gf))
         compare(f"grid_op[walls, ground {gf}]",
@@ -248,6 +329,221 @@ def phase_kernels():
     err = compare("grid_op[Move-v1: 2 Spheres]", k(), p(), TOL["grid_op"], FLIP_BUDGET)
     record("grid_op", err, k, p)
     return results
+
+
+def plain_vjp(fn, inputs, cts):
+    """(fn's VJP at inputs for cotangents cts, a call repeating its backward
+    alone) through torch.autograd of a plain version."""
+    import torch
+
+    ins = [t.clone().requires_grad_(True) for t in inputs]
+    out = fn(*ins)
+    out = out if isinstance(out, tuple) else (out,)
+
+    def backward():
+        grads = torch.autograd.grad(out, ins, cts, retain_graph=True, allow_unused=True)
+        return tuple(torch.zeros_like(i) if g is None else g for g, i in zip(grads, ins))
+
+    return backward(), backward
+
+
+def phase_backward():
+    import dataclasses
+
+    from plasticinelab_tpu_torch.config.spec import PrimitiveSpec
+    from plasticinelab_tpu_torch.engine import cuda_gridop, cuda_stress, cuda_transfer
+    from plasticinelab_tpu_torch.engine.state import default_materials
+
+    scene, x_np = move_scene()
+    sim = scene.simulator
+    n, G = len(x_np), sim.n_grid
+    log(f"phase backward kernels: Move-v1 shapes, n={n}, G={G}, seed {SEED + 1}")
+    rng = np.random.default_rng(SEED + 1)
+    t = tensor
+    mats = default_materials(scene)
+    C = t(rng.standard_normal((n, 3, 3)) * 2.0)
+    F = t(np.eye(3) + rng.standard_normal((n, 3, 3)) * 0.15)
+    x = t(x_np)
+    v = t(rng.standard_normal((n, 3)) * 0.5)
+    aff = t(rng.standard_normal((n, 3, 3)) * 0.3)
+    grid_v = t(rng.standard_normal((G ** 3, 3)) * 0.5)
+    ct_nF, ct_aff = t(rng.standard_normal((n, 3, 3))), t(rng.standard_normal((n, 3, 3)))
+    ct4, ctm = t(rng.standard_normal((G ** 3, 4))), t(rng.standard_normal(G ** 3))
+    ct_v, ct_C, ct_x = (t(rng.standard_normal((n, 3))), t(rng.standard_normal((n, 3, 3))),
+                        t(rng.standard_normal((n, 3))))
+    ct3 = t(rng.standard_normal((G ** 3, 3)))
+    results = {}
+
+    def record(name, err, kern, plain_bwd):
+        k_wall, p_wall = wall_time(kern), wall_time(plain_bwd)
+        results[name] = dict(max_abs_err=err, ms=k_wall, plain_ms=p_wall,
+                             calls=(kern, plain_bwd))
+        log(f"  {name:28s} wall ms/call: kernel {k_wall:.4f}  plain backward {p_wall:.4f}")
+
+    want, p = plain_vjp(lambda c, f: cuda_stress.stress_affine_plain(scene, mats, c, f),
+                        [C, F], [ct_nF, ct_aff])
+    k = lambda: cuda_stress.stress_affine_bwd(scene, mats, C, F, ct_nF, ct_aff)  # noqa: E731
+    record("stress_affine_bwd", compare("stress_affine_bwd (K2)", k(), want,
+                                        BWD_TOL["stress_affine_bwd"]), k, p)
+
+    want, p = plain_vjp(lambda a, b, c: cuda_transfer.p2g_plain(scene, a, b, c), [x, v, aff],
+                        [ct4])
+    k = lambda: cuda_transfer.p2g_bwd(scene, x, v, aff, ct4)  # noqa: E731
+    record("p2g_bwd", compare("p2g_bwd (K4)", k(), want, BWD_TOL["p2g_bwd"]), k, p)
+
+    want, p = plain_vjp(lambda a: cuda_transfer.grid_mass_plain(scene, a), [x], [ctm])
+    k = lambda: (cuda_transfer.grid_mass_bwd(scene, x, ctm),)  # noqa: E731
+    record("grid_mass_bwd", compare("grid_mass_bwd (K7 backward)", k(), want,
+                                    BWD_TOL["grid_mass_bwd"]), k, p)
+
+    want, p = plain_vjp(lambda a, g: cuda_transfer.g2p_plain(scene, a, g), [x, grid_v],
+                        [ct_v, ct_C, ct_x])
+    k = lambda: cuda_transfer.g2p_bwd(scene, x, grid_v, ct_v, ct_C, ct_x)  # noqa: E731
+    record("g2p_bwd", compare("g2p_bwd (K6)", k(), want, BWD_TOL["g2p_bwd"]), k, p)
+
+    def grid_op_check(label, sc, g4, pf, pf1, pose_tol):
+        """K8 backward vs the plain VJP: d grid4 rows (flips counted) and
+        the (k, 16) pose cotangents."""
+        want, p = plain_vjp(
+            lambda g, *ps: cuda_gridop.grid_op_plain(sc, g, ps[:3], ps[3:], 666.0),
+            [g4, *pf, *pf1], [ct3])
+        want_poses = cuda_gridop.pack_poses(want[1:4], want[4:7])
+        poses = cuda_gridop.pack_poses(pf, pf1).contiguous()
+        k = lambda: cuda_gridop.grid_op_bwd(sc, g4, poses, 666.0, ct3)  # noqa: E731
+        dg4, dposes = k()
+        err = compare(f"grid_op_bwd[{label}] d grid4", (dg4,), (want[0],),
+                      BWD_TOL["grid_op_bwd"], FLIP_BUDGET)
+        compare(f"grid_op_bwd[{label}] d grid4 by row", (dg4,), (want[0],),
+                BWD_TOL["grid_op_bwd"], FLIP_BUDGET, per_row=True)
+        compare(f"grid_op_bwd[{label}] d poses", (dposes,), (want_poses,), pose_tol)
+        if not float(want_poses.abs().max()) > 0:
+            raise AssertionError(f"grid_op_bwd[{label}]: no pose gradient to compare")
+        return err, k, p
+
+    grid4 = cuda_transfer.p2g_plain(scene, x, v, sim.p_mass * C)
+    center = x_np.mean(axis=0)
+    for i, (shape, kw) in enumerate(SHAPE_PARAMS.items()):
+        sc = scene.replace(primitives=(PrimitiveSpec(shape=shape, friction=0.9, **kw),))
+        pf, pf1 = test_poses(1, 200 + i, center)
+        grid_op_check(shape, sc, grid4, pf, pf1, POSE_TOL.get(shape, BWD_TOL["grid_op_bwd"]))
+    pf, pf1 = test_poses(len(scene.primitives), 199, center)
+    grid_rand = random_grid(rng, G)
+    for gf in (0.0, 1.5, 100.0):
+        sc = scene.replace(simulator=dataclasses.replace(sim, ground_friction=gf))
+        grid_op_check(f"walls, ground {gf}", sc, grid_rand, pf, pf1, BWD_TOL["grid_op_bwd"])
+    record("grid_op_bwd", *grid_op_check("Move-v1: 2 Spheres", scene, grid4, pf, pf1,
+                                         BWD_TOL["grid_op_bwd"]))
+    return results
+
+
+def phase_gradient():
+    import torch
+
+    from plasticinelab_tpu_torch.engine import cuda_gridop, cuda_stress, cuda_transfer, mpm
+    from plasticinelab_tpu_torch.engine.sim import rollout_losses
+    from plasticinelab_tpu_torch.envs import make
+
+    mods = (cuda_stress, cuda_transfer, cuda_gridop)
+    env = make("Move-v1", device=DEVICE)
+    env.reset()
+    te = env.unwrapped.taichi_env
+    scene, state0 = te.scene, te.state
+    sub = scene.simulator.substeps
+
+    # (a) kernels vs plain versions, GRAD_STEPS env steps from the reset state
+    log(f"phase gradient: {GRAD_STEPS} Move-v1 steps, kernels vs plain versions")
+    acts = tensor(np.random.default_rng(SEED + 2).uniform(-1, 1, (GRAD_STEPS, scene.action_dim)))
+    out = {}
+    for name, ops, remat in (("kernels", mpm.KERNEL_OPS, "none"),
+                             ("plain", mpm.PLAIN_OPS, "env_step")):
+        a = acts.clone().requires_grad_(True)
+        comps, _ = rollout_losses(scene, te.mats, te.loss_state, state0, a, te.softness,
+                                  remat, ops)
+        loss = comps[:, 0].sum()
+        (g,) = torch.autograd.grad(loss, a)
+        out[name] = (float(loss.detach()), g.double())
+    (lk, gk), (lp, gp) = out["kernels"], out["plain"]
+    rel_l = abs(lk - lp) / abs(lp)
+    rel_g = float((gk - gp).abs().max() / gp.abs().max())
+    log(f"  loss kernels {lk:.9g}  plain {lp:.9g}  rel {rel_l:.3e} (bound {GRAD_TOL['loss']:.0e})")
+    log(f"  d/d actions max |grad| {float(gp.abs().max()):.4e}  max diff rel {rel_g:.3e} "
+        f"(bound {GRAD_TOL['grad']:.0e})")
+    if not (torch.isfinite(gk).all() and rel_l <= GRAD_TOL["loss"] and rel_g <= GRAD_TOL["grad"]):
+        raise AssertionError("kernel and plain trajectory gradients disagree")
+
+    # (b) against the reference package's 2-step values
+    loss, grad, _ = te.rollout_value_and_grad(state0, np.asarray(REF_GRAD_ACTIONS), te.softness)
+    grad = grad.double().cpu().numpy()
+    want = np.asarray(REF_GRAD)
+    rel_l = abs(float(loss) - REF_GRAD_LOSS) / abs(REF_GRAD_LOSS)
+    rel_g = float(np.abs(grad - want).max() / np.abs(want).max())
+    log(f"phase gradient reference: 2 steps, loss port {float(loss):.9g} reference "
+        f"{REF_GRAD_LOSS:.9g} rel {rel_l:.3e} (tol {REF_TOL:.0e}); grad max diff rel "
+        f"{rel_g:.3e} (tol {REF_GRAD_TOL:.0e})")
+    log(f"  port grad {np.array2string(grad, precision=6)}")
+    if not (rel_l <= REF_TOL and rel_g <= REF_GRAD_TOL):
+        raise AssertionError("the 2-step gradient disagrees with the reference package")
+
+    # (c) the 50-step trajectory gradient at bench.py's actions
+    actions = np.random.default_rng(0).uniform(-1e-4, 1e-4, (HORIZON, scene.action_dim))
+    log(f"phase gradient trajectory: {HORIZON} steps x {sub} substeps, through the kernels")
+    for mod in mods:
+        mod.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    loss, grad, final = te.rollout_value_and_grad(state0, actions, te.softness)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    launches = {k: v for mod in mods for k, v in mod.launches.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  launches in one trajectory gradient: {launches}")
+    expected = {"stress_affine_bwd": HORIZON * sub, "p2g_bwd": HORIZON * sub,
+                "grid_op_bwd": HORIZON * sub, "g2p_bwd": HORIZON * sub,
+                "grid_mass_bwd": HORIZON}
+    for key, want in expected.items():
+        if launches[key] != want:
+            raise AssertionError(f"{key} ran {launches[key]} times, expected {want}")
+    g = grad.double()
+    if not (torch.isfinite(loss) and torch.isfinite(g).all() and float(g.abs().max()) > 0):
+        raise AssertionError("the trajectory gradient is not finite and non-zero")
+    times = []
+    for _ in range(TRAJ_RUNS):
+        t0 = time.perf_counter()
+        _, g2, _ = te.rollout_value_and_grad(state0, actions, te.softness)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    log(f"  loss {float(loss):.9g}  |grad| max {float(g.abs().max()):.6e} mean "
+        f"{float(g.abs().mean()):.6e}; remat {te.last_remat}")
+    log(f"  seconds per trajectory gradient: best {min(times):.4f}, runs "
+        f"{[round(x, 4) for x in times]} (first, with warm-up, {first:.4f}); "
+        f"substeps/s fwd+bwd {HORIZON * sub / min(times):.1f}")
+    log(f"  peak device memory {peak / 2**30:.3f} GiB above {base / 2**30:.3f} GiB at start; "
+        f"{(peak - base) / (HORIZON * sub) / 2**20:.3f} MiB per substep "
+        f"(resolve_remat assumes {mpm.substep_bytes(scene) / 2**20:.3f})")
+    return launches
+
+
+def phase_solve():
+    import torch
+
+    from plasticinelab_tpu_torch.envs import make
+    from plasticinelab_tpu_torch.optimizer.solver import Solver
+
+    env = make("Move-v1", device=DEVICE)
+    env.reset()
+    te = env.unwrapped.taichi_env
+    init = np.random.default_rng(SEED).uniform(-1e-4, 1e-4, (HORIZON, te.scene.action_dim))
+    solver = Solver(te, None, None, n_iters=SOLVE_ITERS, horizon=HORIZON, softness=666.0,
+                    **{"optim.lr": 0.1, "optim.type": "Adam"})
+    best = solver.solve_device(init_actions=init, chunk=SOLVE_ITERS)
+    torch.cuda.synchronize()
+    losses = solver.iter_losses
+    log(f"phase solve: solve_device, Adam, {SOLVE_ITERS} iterations, horizon {HORIZON}: "
+        f"losses {losses}, {solver.chunk_seconds[0] / SOLVE_ITERS:.4f} s per iteration")
+    if len(losses) != SOLVE_ITERS or not np.isfinite(losses).all() or not np.isfinite(best).all():
+        raise AssertionError("solve_device produced non-finite losses or actions")
 
 
 def phase_reference():
@@ -358,6 +654,10 @@ def main():
     results = phase_kernels()
     phase_reference()
     launches, _ = phase_slice()
+    results.update(phase_backward())
+    # the backward kernels' counts come from the trajectory gradient's run
+    launches.update({k: v for k, v in phase_gradient().items() if k.endswith("_bwd")})
+    phase_solve()
     # after the slice: an active profiler slows every later launch
     log("phase device times (torch.profiler, ms per call)")
     for k, r in results.items():

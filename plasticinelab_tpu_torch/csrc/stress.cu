@@ -1,9 +1,15 @@
-// Particle stress kernel: F-update, 3x3 Jacobi SVD, von Mises return map,
-// stress and APIC affine, one thread per particle, all in registers.
+// Particle stress kernels, one thread per particle, all in registers.
 //
-// Port of plasticinelab_tpu/engine/pallas_stress.py:_fwd_kernel (K1), whose
-// math is _forward_core (:70-194); every step below follows it in order.
-// In/out are (n, 3, 3) row-major float32.
+// stress_affine_kernel: F-update, 3x3 Jacobi SVD, von Mises return map,
+//   stress and APIC affine. Port of plasticinelab_tpu/engine/pallas_stress.py
+//   _fwd_kernel (K1), whose math is _forward_core (:70-194); every step of
+//   forward_core below follows it in order.
+// stress_affine_bwd_kernel: the hand-derived adjoint of the whole chain with
+//   the damped-eigengap SVD cotangent. Port of pallas_stress.py _bwd_kernel
+//   (K2, :222-330): it recomputes the forward from C and F (forward_core,
+//   shared with K1) and applies the adjoint term by term.
+// In/out are (n, 3, 3) row-major float32. Bound by arithmetic and registers:
+// ~2k flops forward and ~4k backward per particle against 72-144 B of I/O.
 #include "common.cuh"
 
 namespace {
@@ -90,23 +96,35 @@ __device__ __forceinline__ void safe_normalize(const float (&x)[3], const float 
   for (int i = 0; i < 3; ++i) o[i] = okn ? x[i] * inv : fb[i];
 }
 
-__global__ void stress_affine_kernel(const float* __restrict__ Cg, const float* __restrict__ Fg,
-                                     float* __restrict__ newFg, float* __restrict__ affg,
-                                     long long n, float dt, float mu, float lam, float ys,
-                                     float coeff, float p_mass) {
-  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  float C[3][3], F[3][3];
+// A = B C (mode 0), A = B C^T (mode 1), A = B^T C (mode 2)
+template <int MODE>
+__device__ __forceinline__ void mm3(const float (&B)[3][3], const float (&C)[3][3],
+                                    float (&A)[3][3]) {
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      C[i][j] = Cg[p * 9 + i * 3 + j];
-      F[i][j] = Fg[p * 9 + i * 3 + j];
+      float s = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float b = MODE == 2 ? B[k][i] : B[i][k];
+        const float c = MODE == 1 ? C[j][k] : C[k][j];
+        s += b * c;
+      }
+      A[i][j] = s;
     }
+}
 
+// Every forward intermediate the adjoint needs (_forward_core's dict).
+struct StressFwd {
+  float Ft[3][3], U[3][3], V[3][3], sig[3], sc[3], eh[3], f[3], nF[3][3];
+  float ehn, cy, J;
+  bool yields;
+};
+
+__device__ __forceinline__ void forward_core(const float (&C)[3][3], const float (&F)[3][3],
+                                             float dt, float mu, float ys, StressFwd& o) {
   // Ft = (I + dt C) F
-  float Ft[3][3];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -114,16 +132,17 @@ __global__ void stress_affine_kernel(const float* __restrict__ Cg, const float* 
       float s = 0.0f;
 #pragma unroll
       for (int k = 0; k < 3; ++k) s += ((i == k ? 1.0f : 0.0f) + dt * C[i][k]) * F[k][j];
-      Ft[i][j] = s;
+      o.Ft[i][j] = s;
     }
 
   // Jacobi eigendecomposition of A = Ft^T Ft
-  float a[3][3], V[3][3];
+  float a[3][3];
+  float(&V)[3][3] = o.V;
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      a[i][j] = Ft[0][i] * Ft[0][j] + Ft[1][i] * Ft[1][j] + Ft[2][i] * Ft[2][j];
+      a[i][j] = o.Ft[0][i] * o.Ft[0][j] + o.Ft[1][i] * o.Ft[1][j] + o.Ft[2][i] * o.Ft[2][j];
       V[i][j] = i == j ? 1.0f : 0.0f;
     }
 #pragma unroll
@@ -151,10 +170,7 @@ __global__ void stress_affine_kernel(const float* __restrict__ Cg, const float* 
 
   // U by Gram-Schmidt of the columns of Ft V
   float FV[3][3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) FV[i][j] = Ft[i][0] * V[0][j] + Ft[i][1] * V[1][j] + Ft[i][2] * V[2][j];
+  mm3<0>(o.Ft, V, FV);
   const float e0[3] = {1.0f, 0.0f, 0.0f}, e1[3] = {0.0f, 1.0f, 0.0f}, e2[3] = {0.0f, 0.0f, 1.0f};
   const float fv0[3] = {FV[0][0], FV[1][0], FV[2][0]};
   float u0[3], u1[3], u2[3];
@@ -174,62 +190,224 @@ __global__ void stress_affine_kernel(const float* __restrict__ Cg, const float* 
   safe_normalize(alt, e1, alt_n);
   safe_normalize(raw1, alt_n, u1);
   cross3(u0, u1, u2);
-  float U[3][3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    U[i][0] = u0[i];
-    U[i][1] = u1[i];
-    U[i][2] = u2[i];
+    o.U[i][0] = u0[i];
+    o.U[i][1] = u1[i];
+    o.U[i][2] = u2[i];
   }
-  float sig[3];
 #pragma unroll
-  for (int j = 0; j < 3; ++j) sig[j] = FV[0][j] * U[0][j] + FV[1][j] * U[1][j] + FV[2][j] * U[2][j];
+  for (int j = 0; j < 3; ++j)
+    o.sig[j] = FV[0][j] * o.U[0][j] + FV[1][j] * o.U[1][j] + FV[2][j] * o.U[2][j];
 
   // von Mises return mapping
   float eps[3];
 #pragma unroll
-  for (int k = 0; k < 3; ++k) eps[k] = logf(jmax(sig[k], 0.05f));
+  for (int k = 0; k < 3; ++k) {
+    o.sc[k] = jmax(o.sig[k], 0.05f);
+    eps[k] = logf(o.sc[k]);
+  }
   const float mean = (eps[0] + eps[1] + eps[2]) / 3.0f;
-  float eh[3];
 #pragma unroll
-  for (int k = 0; k < 3; ++k) eh[k] = eps[k] - mean;
-  const float ehn = sqrtf(eh[0] * eh[0] + eh[1] * eh[1] + eh[2] * eh[2] + 1e-8f);
-  const float cy = ys / (2.0f * mu);
-  const float dg = ehn - cy;
-  const bool yields = dg > 0.0f;
-  const float fac = dg / ehn;
-  float f[3];
+  for (int k = 0; k < 3; ++k) o.eh[k] = eps[k] - mean;
+  o.ehn = sqrtf(o.eh[0] * o.eh[0] + o.eh[1] * o.eh[1] + o.eh[2] * o.eh[2] + 1e-8f);
+  o.cy = ys / (2.0f * mu);
+  const float dg = o.ehn - o.cy;
+  o.yields = dg > 0.0f;
+  const float fac = dg / o.ehn;
 #pragma unroll
-  for (int k = 0; k < 3; ++k) f[k] = expf(eps[k] - fac * eh[k]);
-  float nF[3][3];
+  for (int k = 0; k < 3; ++k) o.f[k] = expf(eps[k] - fac * o.eh[k]);
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      const float fvm = U[i][0] * f[0] * V[j][0] + U[i][1] * f[1] * V[j][1] + U[i][2] * f[2] * V[j][2];
-      nF[i][j] = yields ? fvm : Ft[i][j];
+      const float fvm = o.U[i][0] * o.f[0] * V[j][0] + o.U[i][1] * o.f[1] * V[j][1] +
+                        o.U[i][2] * o.f[2] * V[j][2];
+      o.nF[i][j] = o.yields ? fvm : o.Ft[i][j];
     }
+  float cr[3];
+  cross3(o.nF[0], o.nF[1], cr);
+  o.J = dot3(cr, o.nF[2]);
+}
+
+__device__ __forceinline__ void load33(const float* __restrict__ g, long long p, float (&M)[3][3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) M[i][j] = g[p * 9 + i * 3 + j];
+}
+
+__global__ void stress_affine_kernel(const float* __restrict__ Cg, const float* __restrict__ Fg,
+                                     float* __restrict__ newFg, float* __restrict__ affg,
+                                     long long n, float dt, float mu, float lam, float ys,
+                                     float coeff, float p_mass) {
+  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  float C[3][3], F[3][3];
+  load33(Cg, p, C);
+  load33(Fg, p, F);
+  StressFwd o;
+  forward_core(C, F, dt, mu, ys, o);
 
   // stress 2 mu (F - R) F^T + lam J (J - 1) I, scaled, plus p_mass C
-  float cr[3];
-  cross3(nF[0], nF[1], cr);
-  const float J = dot3(cr, nF[2]);
-  const float lamJ = lam * J * (J - 1.0f);
+  const float lamJ = lam * o.J * (o.J - 1.0f);
   float FmR[3][3];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j)
-      FmR[i][j] = nF[i][j] - (U[i][0] * V[j][0] + U[i][1] * V[j][1] + U[i][2] * V[j][2]);
+      FmR[i][j] = o.nF[i][j] - (o.U[i][0] * o.V[j][0] + o.U[i][1] * o.V[j][1] + o.U[i][2] * o.V[j][2]);
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      const float S = FmR[i][0] * nF[j][0] + FmR[i][1] * nF[j][1] + FmR[i][2] * nF[j][2];
+      const float S = FmR[i][0] * o.nF[j][0] + FmR[i][1] * o.nF[j][1] + FmR[i][2] * o.nF[j][2];
       float val = 2.0f * mu * S + (i == j ? lamJ : 0.0f);
       val = coeff * val + p_mass * C[i][j];
       affg[p * 9 + i * 3 + j] = val;
-      newFg[p * 9 + i * 3 + j] = nF[i][j];
+      newFg[p * 9 + i * 3 + j] = o.nF[i][j];
+    }
+}
+
+// Inverse eigengap of the SVD backward (svd3.py:211-220): 0 = the
+// reference's 1/clamp(gap, 1e-6), 1 = damped gap / (gap^2 + eps^2), 2 = zero.
+__device__ __forceinline__ float inv_gap(float gap, int mode, float eps) {
+  if (mode == 0) {
+    const float c = gap >= 0.0f ? jmax(gap, 1e-6f) : plb::jmin(gap, -1e-6f);
+    return 1.0f / c;
+  }
+  if (mode == 1) return gap / (gap * gap + eps * eps);
+  return 0.0f;
+}
+
+__global__ void stress_affine_bwd_kernel(const float* __restrict__ Cg, const float* __restrict__ Fg,
+                                         const float* __restrict__ gNFg,
+                                         const float* __restrict__ gAffg, float* __restrict__ gCg,
+                                         float* __restrict__ gFg, long long n, float dt, float mu,
+                                         float lam, float ys, float coeff, float p_mass,
+                                         int gap_mode, float gap_eps) {
+  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  float C[3][3], F[3][3], gNF[3][3], gAff[3][3];
+  load33(Cg, p, C);
+  load33(Fg, p, F);
+  load33(gNFg, p, gNF);
+  load33(gAffg, p, gAff);
+  StressFwd o;
+  forward_core(C, F, dt, mu, ys, o);
+  const float(&U)[3][3] = o.U;
+  const float(&V)[3][3] = o.V;
+
+  // ---- stress / affine adjoint ----
+  float gS[3][3];
+  float trg = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) gS[i][j] = 2.0f * mu * coeff * gAff[i][j];
+    trg += coeff * gAff[i][i];
+  }
+  const float gJ = lam * (2.0f * o.J - 1.0f) * trg;
+  // S = (newF - R) newF^T
+  float FmR[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      FmR[i][j] = o.nF[i][j] - (U[i][0] * V[j][0] + U[i][1] * V[j][1] + U[i][2] * V[j][2]);
+  float gS_nF[3][3], gSt_FmR[3][3];
+  mm3<0>(gS, o.nF, gS_nF);
+  mm3<2>(gS, FmR, gSt_FmR);
+  // cofactor of newF: rows are cross products of the other two rows
+  float cof[3][3];
+  cross3(o.nF[1], o.nF[2], cof[0]);
+  cross3(o.nF[2], o.nF[0], cof[1]);
+  cross3(o.nF[0], o.nF[1], cof[2]);
+  float gNewF[3][3], gR[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      gNewF[i][j] = gNF[i][j] + gS_nF[i][j] + gSt_FmR[i][j] + gJ * cof[i][j];
+      gR[i][j] = -gS_nF[i][j];
+    }
+
+  // ---- von Mises adjoint (yielding lanes) ----
+  float gNFV[3][3], gNFtU[3][3], UtgNF[3][3], UtgNFV[3][3];
+  mm3<0>(gNewF, V, gNFV);
+  mm3<2>(gNewF, U, gNFtU);
+  mm3<2>(U, gNewF, UtgNF);
+  mm3<0>(UtgNF, V, UtgNFV);
+  float gep[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) gep[k] = UtgNFV[k][k] * o.f[k];
+  // eps_p = mean + (cy / ehn) eh
+  const float sum_gep = gep[0] + gep[1] + gep[2];
+  const float ehn2 = o.ehn * o.ehn;
+  const float dot_eh_gep = o.eh[0] * gep[0] + o.eh[1] * gep[1] + o.eh[2] * gep[2];
+  float geh[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    geh[k] = o.cy * (gep[k] / o.ehn - o.eh[k] * dot_eh_gep / (ehn2 * o.ehn));
+  const float mean_geh = (geh[0] + geh[1] + geh[2]) / 3.0f;
+  float gsig[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float geps = geh[k] - mean_geh + sum_gep / 3.0f;
+    // eps = log(max(sig, 0.05)): no gradient below the clamp
+    const float gsig_vm = o.sig[k] > 0.05f ? geps / o.sc[k] : 0.0f;
+    gsig[k] = o.yields ? gsig_vm : 0.0f;
+  }
+  // the R path flows in every lane
+  float gR_V[3][3], gRt_U[3][3], gU[3][3], gV[3][3];
+  mm3<0>(gR, V, gR_V);
+  mm3<2>(gR, U, gRt_U);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      gU[i][j] = (o.yields ? gNFV[i][j] * o.f[j] : 0.0f) + gR_V[i][j];
+      gV[i][j] = (o.yields ? gNFtU[i][j] * o.f[j] : 0.0f) + gRt_U[i][j];
+    }
+
+  // ---- SVD adjoint, damped eigengap (svd3.py:205-235) ----
+  float s2[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) s2[k] = o.sig[k] * o.sig[k];
+  float UtgU[3][3], VtgV[3][3];
+  mm3<2>(U, gU, UtgU);
+  mm3<2>(V, gV, VtgV);
+  float mid[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float Fm = i == j ? 0.0f : inv_gap(s2[j] - s2[i], gap_mode, gap_eps);
+      const float inner_u = Fm * (UtgU[i][j] - UtgU[j][i]);
+      const float inner_v = Fm * (VtgV[i][j] - VtgV[j][i]);
+      mid[i][j] = inner_u * o.sig[j] + o.sig[i] * inner_v + (i == j ? gsig[i] : 0.0f);
+    }
+  float Umid[3][3], gFt[3][3];
+  mm3<0>(U, mid, Umid);
+  mm3<1>(Umid, V, gFt);
+  // non-yielding lanes route gNewF straight to Ft
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) gFt[i][j] += o.yields ? 0.0f : gNewF[i][j];
+
+  // ---- Ft = (I + dt C) F adjoint ----
+  float gFtFt[3][3];
+  mm3<1>(gFt, F, gFtFt);  // gFt F^T
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      float gf = 0.0f;  // ((I + dt C)^T gFt)_ij
+#pragma unroll
+      for (int k = 0; k < 3; ++k) gf += ((k == i ? 1.0f : 0.0f) + dt * C[k][i]) * gFt[k][j];
+      gCg[p * 9 + i * 3 + j] = p_mass * gAff[i][j] + dt * gFtFt[i][j];
+      gFg[p * 9 + i * 3 + j] = gf;
     }
 }
 
@@ -244,6 +422,22 @@ extern "C" int plb_stress_affine(const float* C, const float* F, float* newF, fl
     stress_affine_kernel<<<plb::blocks_for(n), plb::kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(C, F, newF, affine, n, dt, mu,
                                                                 lam, ys, coeff, p_mass);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int plb_stress_affine_bwd(const float* C, const float* F, const float* gNewF,
+                                     const float* gAffine, float* gC, float* gF, long long n,
+                                     float dt, float mu, float lam, float ys, float coeff,
+                                     float p_mass, int gap_mode, float gap_eps, int device,
+                                     void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (gap_mode < 0 || gap_mode > 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0) {
+    stress_affine_bwd_kernel<<<plb::blocks_for(n), plb::kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        C, F, gNewF, gAffine, gC, gF, n, dt, mu, lam, ys, coeff, p_mass, gap_mode, gap_eps);
   }
   return static_cast<int>(cudaGetLastError());
 }

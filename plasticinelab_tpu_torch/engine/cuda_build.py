@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels (`csrc/*.cu`).
 
-The sources are compiled with nvcc for Hopper (`sm_90a`) into one shared
-library with a plain C interface, loaded with ctypes. The build happens at
+The sources are compiled with nvcc for Hopper (`sm_90a`), one nvcc process
+per source running at once, and linked into one shared library with a plain
+C interface, loaded with ctypes. The build happens at
 first use, into `build/plasticinelab_tpu_torch/<hash>/` beside the package,
 keyed by a hash of the sources and flags, so a fresh checkout builds once
 and an edited source builds anew. No `--use_fast_math`: it would change
@@ -30,6 +31,7 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "plasticinelab_tpu_tor
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 MAX_PRIMS = 8  # csrc/gridop.cu PLB_MAX_PRIMS
+THREADS = 256  # csrc/common.cuh kThreads: threads per block of every kernel
 
 
 class PrimTable(ctypes.Structure):
@@ -62,6 +64,21 @@ _SIGNATURES = {
     # ground_friction, vmax, device, stream
     "plb_grid_op": [_P, _P, _P, PrimTable, _I, _F, _F, _F, _F, _F, _F, _F, _F,
                     _I, _P],
+    # C, F, gNewF, gAffine, gC, gF, n, dt, mu, lam, yield_stress, coeff,
+    # p_mass, gap_mode, gap_eps, device, stream
+    "plb_stress_affine_bwd": [_P, _P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F,
+                              _I, _F, _I, _P],
+    # x, v, affine, ct, gx, gv, gaffine, n, G, inv_dx, dx, p_mass, device, stream
+    "plb_p2g_bwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _I, _P],
+    # x, ct, gx, n, G, inv_dx, p_mass, device, stream
+    "plb_grid_mass_bwd": [_P, _P, _P, _L, _I, _F, _F, _I, _P],
+    # x, grid_v, ct_v, ct_C, ct_x, gx, g_grid, n, G, inv_dx, dt, x_hi, device,
+    # stream
+    "plb_g2p_bwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _I, _P],
+    # grid4, poses, ct, dgrid4, dposes, partials, table, G, dx, dt, softness,
+    # gravity xyz, ground_friction, vmax, device, stream
+    "plb_grid_op_bwd": [_P, _P, _P, _P, _P, _P, PrimTable, _I, _F, _F, _F, _F, _F,
+                        _F, _F, _F, _I, _P],
 }
 
 
@@ -83,7 +100,8 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     """Path of the built library for the current sources, building it first
-    if it is missing."""
+    if it is missing: one nvcc per source, all started together, then one
+    link."""
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs:
@@ -94,16 +112,39 @@ def library_path() -> str:
     if os.path.exists(lib):
         return lib
     os.makedirs(out_dir, exist_ok=True)
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs, procs = [], []
+    for src in (s for s in srcs if s.endswith(".cu")):
+        fd, obj = tempfile.mkstemp(suffix=".o", dir=out_dir)
+        os.close(fd)
+        cmd = [nvcc, *compile_flags, "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in srcs if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp, *objs]
+    log, failed = [], None
+    try:
+        for cmd, proc in procs:
+            out, err = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + out + err)
+            if proc.returncode != 0 and failed is None:
+                failed = (proc.returncode, err)
+        if failed is None:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed = (proc.returncode, proc.stderr)
+    finally:
+        with open(os.path.join(out_dir, "build.log"), "w") as f:
+            f.write("\n".join(log))
+        for obj in objs:
+            os.unlink(obj)
+    if failed is not None:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{failed[1][-8000:]}")
     os.replace(tmp, lib)
     return lib
 

@@ -1,8 +1,10 @@
-"""Grid update: plain PyTorch version and the CUDA kernel.
+"""Grid update: plain PyTorch version and the CUDA kernels.
 
-Replaces the forward of the TPU kernel K8,
-`plasticinelab_tpu/engine/pallas_gridop.py:_fwd_kernel` (:82), which runs
-`plasticinelab_tpu/engine/mpm.py:grid_op_core` (:193-255) per cell. The
+Replaces the TPU kernel K8, `plasticinelab_tpu/engine/pallas_gridop.py`:
+its forward `_fwd_kernel` (:82), which runs
+`plasticinelab_tpu/engine/mpm.py:grid_op_core` (:193-255) per cell, and its
+backward `_bwd_kernel` (:97), the reference's autodiff of that core run
+inside the kernel, here an adjoint written by hand (`GridOp`). The
 plain version follows `mpm.py:grid_op` (:133-190) on the full grid (crop
 offset 0): mass normalise, gravity x 30, per-primitive SDF collision with
 friction and softness at poses f and f+1, walls with bound 3, ground
@@ -17,9 +19,17 @@ reference's contact condition holds, which is a thin shell around each
 primitive. The primitives come in as a small table passed by value (shape
 id and parameters) and a (k, 16) device tensor of the poses at f and f+1.
 
+The backward recomputes each cell's forward and runs it backwards; the
+SDF and normal Jacobians of the 7 shapes come from the same shape code on a
+dual number. It returns d grid4 (G^3, 4) and the pose cotangents (k, 16) in
+the layout of `pack_poses`, which autograd routes back into pose_f and
+pose_f1 and on through the forward kinematics to the actions. The pose
+cotangents are summed over cells per block, then over blocks in a fixed
+order by a second small kernel: deterministic, no contended atomics.
+
 The wrapper takes the plain version only for a CPU tensor; for a CUDA
-tensor it launches the kernel (float32, contiguous) or raises. `launches`
-counts kernel launches.
+tensor it launches the kernel (float32, contiguous) or raises, and so does
+the backward. `launches` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -31,14 +41,15 @@ from ..config.spec import SceneSpec
 from . import cuda_build as cb
 from . import primitives as prim
 
-launches = {"grid_op": 0}
+launches = {"grid_op": 0, "grid_op_bwd": 0}
 
 SHAPE_IDS = {"Sphere": 0, "Capsule": 1, "RollingPin": 1, "Chopsticks": 2,
              "Cylinder": 3, "Torus": 4, "Box": 5}
 
 
 def reset_launches() -> None:
-    launches["grid_op"] = 0
+    for k in launches:
+        launches[k] = 0
 
 
 def grid_coords(G: int, device) -> torch.Tensor:
@@ -120,9 +131,75 @@ def pack_poses(pose_f, pose_f1) -> torch.Tensor:
     return torch.cat([p0, r0, g0[:, None], p1, r1, g1[:, None]], dim=1)
 
 
+def _consts(scene: SceneSpec, softness: float):
+    """Scalar arguments after the table: G, dx, dt, softness, gravity x 30 dt
+    (3), ground friction, velocity clamp (0 = none)."""
+    sim = scene.simulator
+    g30 = [sim.dt * g * 30.0 for g in sim.gravity]
+    vmax = sim.grid_v_clamp * sim.dx / sim.dt if sim.grid_v_clamp > 0 else 0.0
+    return (sim.n_grid, sim.dx, sim.dt, float(softness), *g30, sim.ground_friction, vmax)
+
+
+def _check_packed(scene: SceneSpec, grid4, poses):
+    G, k = scene.simulator.n_grid, len(scene.primitives)
+    cb.require(grid4, "grid4", (G ** 3, 4), grid4.device)
+    cb.require(poses, "poses", (k, 16), grid4.device)
+    cb.require_kernel_input(grid4, "grid4")
+    cb.require_kernel_input(poses, "poses")
+
+
+def _launch_fwd(scene: SceneSpec, grid4, poses, softness: float):
+    _check_packed(scene, grid4, poses)
+    out = torch.empty((grid4.shape[0], 3), device=grid4.device, dtype=torch.float32)
+    err = cb.library().plb_grid_op(
+        grid4.data_ptr(), poses.data_ptr(), out.data_ptr(), prim_table(scene.primitives),
+        *_consts(scene, softness), grid4.device.index, cb.stream_of(grid4))
+    cb.check(err, "grid_op")
+    launches["grid_op"] += 1
+    return out
+
+
+def grid_op_bwd(scene: SceneSpec, grid4, poses, softness: float, ct):
+    """The K8 backward kernels: grid velocity cotangent (G^3, 3) -> (d grid4
+    (G^3, 4), d poses (k, 16)), the VJP of `grid_op_plain` through
+    `pack_poses`. CUDA tensors only."""
+    _check_packed(scene, grid4, poses)
+    cb.require(ct, "ct", (grid4.shape[0], 3), grid4.device)
+    cb.require_kernel_input(ct, "ct")
+    k = len(scene.primitives)
+    nblocks = (grid4.shape[0] + cb.THREADS - 1) // cb.THREADS
+    dgrid4 = torch.empty_like(grid4)
+    dposes = torch.empty_like(poses)
+    partials = torch.empty((nblocks, k, 19), device=grid4.device, dtype=torch.float32)
+    err = cb.library().plb_grid_op_bwd(
+        grid4.data_ptr(), poses.data_ptr(), ct.data_ptr(), dgrid4.data_ptr(),
+        dposes.data_ptr(), partials.data_ptr(), prim_table(scene.primitives),
+        *_consts(scene, softness), grid4.device.index, cb.stream_of(grid4))
+    cb.check(err, "grid_op_bwd")
+    launches["grid_op_bwd"] += 1
+    return dgrid4, dposes
+
+
+class GridOp(torch.autograd.Function):
+    """(grid4, poses (k, 16)) -> grid_v: forward K8, backward K8-bwd (saves
+    grid4 and poses)."""
+
+    @staticmethod
+    def forward(ctx, grid4, poses, scene, softness):
+        ctx.scene, ctx.softness = scene, softness
+        ctx.save_for_backward(grid4, poses)
+        return _launch_fwd(scene, grid4, poses, softness)
+
+    @staticmethod
+    def backward(ctx, ct):
+        grid4, poses = ctx.saved_tensors
+        dgrid4, dposes = grid_op_bwd(ctx.scene, grid4, poses, ctx.softness, ct.contiguous())
+        return dgrid4, dposes, None, None
+
+
 def grid_op(scene: SceneSpec, grid4, pose_f, pose_f1, softness: float):
-    """-> grid_v (G^3, 3); the K8 forward kernel on CUDA, the plain version
-    on the CPU."""
+    """-> grid_v (G^3, 3); the K8 kernel (backward K8-bwd) on CUDA, the plain
+    version on the CPU."""
     G = scene.simulator.n_grid
     k = len(scene.primitives)
     cb.require(grid4, "grid4", (G ** 3, 4), grid4.device)
@@ -131,18 +208,4 @@ def grid_op(scene: SceneSpec, grid4, pose_f, pose_f1, softness: float):
             cb.require(t, name, shape, grid4.device)
     if grid4.device.type == "cpu":
         return grid_op_plain(scene, grid4, pose_f, pose_f1, softness)
-    cb.require_kernel_input(grid4, "grid4")
-    poses = pack_poses(pose_f, pose_f1)
-    cb.require_kernel_input(poses, "poses")
-    sim = scene.simulator
-    out = torch.empty((G ** 3, 3), device=grid4.device, dtype=torch.float32)
-    g30 = [sim.dt * g * 30.0 for g in sim.gravity]
-    vmax = sim.grid_v_clamp * sim.dx / sim.dt if sim.grid_v_clamp > 0 else 0.0
-    err = cb.library().plb_grid_op(
-        grid4.data_ptr(), poses.data_ptr(), out.data_ptr(),
-        prim_table(scene.primitives), G, sim.dx, sim.dt, float(softness),
-        *g30, sim.ground_friction, vmax, grid4.device.index,
-        cb.stream_of(grid4))
-    cb.check(err, "grid_op")
-    launches["grid_op"] += 1
-    return out
+    return GridOp.apply(grid4, pack_poses(pose_f, pose_f1), scene, float(softness))

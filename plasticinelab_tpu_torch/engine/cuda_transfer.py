@@ -4,7 +4,14 @@ Replaces the TPU kernels
 - K3 `plasticinelab_tpu/engine/pallas_local.py:_p2g_fwd_kernel` (:163),
 - K7 forward `pallas_local.py:_mass_fwd_kernel` (:943), the mass-only P2G
   of the loss, here the `MASS_ONLY` instantiation of the same P2G kernel,
-- K5 `pallas_local.py:_g2p_fwd_kernel` (:223), G2P with fused advection.
+- K5 `pallas_local.py:_g2p_fwd_kernel` (:223), G2P with fused advection,
+and their VJPs
+- K4 `_p2g_bwd_kernel` (:288): the (G^3, 4) cotangent gathered over each
+  particle's 27 cells -> dx, dv, daffine (`P2G`),
+- K7 backward `_mass_bwd_kernel` (:970), d/dx of the mass-only P2G, the
+  `MASS_ONLY` instantiation of the K4 kernel (`GridMass`),
+- K6 `_g2p_bwd_kernel` (:388): d grid_v scattered with atomics, dx with the
+  strict advection mask of :450-477 (`G2P`).
 
 The TPU kernels contract per-axis weight matrices on the MXU inside a
 cropped, cell-sorted window layout, because a TPU has no fast scatter. On
@@ -18,10 +25,15 @@ the H100 the natural form is the reference's own: one thread per particle,
 - Atomics sum in a run-dependent order, so P2G and everything downstream
   is not bitwise reproducible (the TPU transfers are). The tests bound the
   difference to the plain version instead.
+- The backward gathers (K4, K7) read the L2-resident cotangent grid per
+  particle with no atomics; K6 scatters its grid cotangent like K3. The
+  dx terms run through the spline weight derivatives (chained by inv_dx)
+  and through dpos = cell - x inv_dx.
 
-Each wrapper takes its plain version only for a CPU tensor; for a CUDA
-tensor it launches its kernel (float32, contiguous) or raises. `launches`
-counts kernel launches per wrapper.
+Each wrapper takes its plain version (differentiable through index_add_
+and gather) only for a CPU tensor; for a CUDA tensor it launches its kernel
+(float32, contiguous) or raises, and so do the backwards. `launches` counts
+kernel launches per wrapper.
 """
 from __future__ import annotations
 
@@ -31,7 +43,8 @@ from ..config.spec import SceneSpec
 from . import cuda_build as cb
 from .transfer import stencil
 
-launches = {"p2g": 0, "grid_mass": 0, "g2p": 0}
+launches = {"p2g": 0, "grid_mass": 0, "g2p": 0, "p2g_bwd": 0, "grid_mass_bwd": 0,
+            "g2p_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -72,28 +85,24 @@ def g2p_plain(scene: SceneSpec, x, grid_v):
     g = grid_v[idx]  # (n, 27, 3)
     new_v = torch.sum(W[..., None] * g, dim=1)
     new_C = (4.0 * sim.inv_dx) * torch.einsum("nj,njs,nja->nsa", W, g, dpos)
-    new_x = torch.clamp(x + sim.dt * new_v, min=0.0, max=1.0 - 3 * sim.dx)
+    # max(min(., hi), lo) as the reference (mpm.py:351-353): at a tie its
+    # gradient splits in half, where torch.clamp would pass it whole
+    hi, lo = x.new_tensor(1.0 - 3 * sim.dx), x.new_tensor(0.0)
+    new_x = torch.maximum(torch.minimum(x + sim.dt * new_v, hi), lo)
     return new_v, new_C, new_x
 
 
 # ---------------------------------------------------------------------------
-# wrappers
+# kernels and their autograd Functions
 # ---------------------------------------------------------------------------
 
-def p2g(scene: SceneSpec, x, v, affine):
-    """-> grid4 (G^3, 4); the K3 kernel on CUDA, `p2g_plain` on the CPU."""
-    n = x.shape[0]
-    for t, name, shape in ((x, "x", (n, 3)), (v, "v", (n, 3)),
-                           (affine, "affine", (n, 3, 3))):
-        cb.require(t, name, shape, x.device)
-    if x.device.type == "cpu":
-        return p2g_plain(scene, x, v, affine)
+def _launch_p2g(scene: SceneSpec, x, v, affine):
     for t, name in ((x, "x"), (v, "v"), (affine, "affine")):
         cb.require_kernel_input(t, name)
     sim = scene.simulator
     grid = torch.zeros((sim.n_grid ** 3, 4), device=x.device, dtype=torch.float32)
     err = cb.library().plb_p2g(
-        x.data_ptr(), v.data_ptr(), affine.data_ptr(), grid.data_ptr(), n,
+        x.data_ptr(), v.data_ptr(), affine.data_ptr(), grid.data_ptr(), x.shape[0],
         sim.n_grid, sim.inv_dx, sim.dx, sim.p_mass, x.device.index,
         cb.stream_of(x))
     cb.check(err, "p2g")
@@ -101,35 +110,87 @@ def p2g(scene: SceneSpec, x, v, affine):
     return grid
 
 
-def grid_mass(scene: SceneSpec, x):
-    """-> grid_m (G^3,); the mass-only P2G kernel (K7 forward) on CUDA,
-    `grid_mass_plain` on the CPU."""
-    n = x.shape[0]
-    cb.require(x, "x", (n, 3), x.device)
-    if x.device.type == "cpu":
-        return grid_mass_plain(scene, x)
+def p2g_bwd(scene: SceneSpec, x, v, affine, ct):
+    """The K4 kernel: grid4 cotangent (G^3, 4) -> (dx (n,3), dv (n,3),
+    daffine (n,3,3)), the VJP of `p2g_plain`. CUDA tensors only."""
+    n, sim = x.shape[0], scene.simulator
+    _check_particles(x, v, affine)
+    cb.require(ct, "ct", (sim.n_grid ** 3, 4), x.device)
+    for t, name in ((x, "x"), (v, "v"), (affine, "affine"), (ct, "ct")):
+        cb.require_kernel_input(t, name)
+    gx, gv, gaff = torch.empty_like(x), torch.empty_like(v), torch.empty_like(affine)
+    err = cb.library().plb_p2g_bwd(
+        x.data_ptr(), v.data_ptr(), affine.data_ptr(), ct.data_ptr(), gx.data_ptr(),
+        gv.data_ptr(), gaff.data_ptr(), n, sim.n_grid, sim.inv_dx, sim.dx, sim.p_mass,
+        x.device.index, cb.stream_of(x))
+    cb.check(err, "p2g_bwd")
+    launches["p2g_bwd"] += 1
+    return gx, gv, gaff
+
+
+class P2G(torch.autograd.Function):
+    """(x, v, affine) -> grid4: forward K3, backward K4 (saves x, v, affine)."""
+
+    @staticmethod
+    def forward(ctx, x, v, affine, scene):
+        ctx.scene = scene
+        ctx.save_for_backward(x, v, affine)
+        return _launch_p2g(scene, x, v, affine)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, v, affine = ctx.saved_tensors
+        return (*p2g_bwd(ctx.scene, x, v, affine, ct.contiguous()), None)
+
+
+def _launch_grid_mass(scene: SceneSpec, x):
     cb.require_kernel_input(x, "x")
     sim = scene.simulator
     grid = torch.zeros((sim.n_grid ** 3,), device=x.device, dtype=torch.float32)
     err = cb.library().plb_grid_mass(
-        x.data_ptr(), grid.data_ptr(), n, sim.n_grid, sim.inv_dx, sim.p_mass,
+        x.data_ptr(), grid.data_ptr(), x.shape[0], sim.n_grid, sim.inv_dx, sim.p_mass,
         x.device.index, cb.stream_of(x))
     cb.check(err, "grid_mass")
     launches["grid_mass"] += 1
     return grid
 
 
-def g2p(scene: SceneSpec, x, grid_v):
-    """-> (new_v, new_C, new_x); the K5 kernel on CUDA, `g2p_plain` on the
-    CPU."""
-    n = x.shape[0]
-    sim = scene.simulator
+def grid_mass_bwd(scene: SceneSpec, x, ct):
+    """The K7 backward kernel (the MASS_ONLY form of K4): grid mass
+    cotangent (G^3,) -> dx (n, 3). CUDA tensors only."""
+    n, sim = x.shape[0], scene.simulator
     cb.require(x, "x", (n, 3), x.device)
-    cb.require(grid_v, "grid_v", (sim.n_grid ** 3, 3), x.device)
-    if x.device.type == "cpu":
-        return g2p_plain(scene, x, grid_v)
+    cb.require(ct, "ct", (sim.n_grid ** 3,), x.device)
+    cb.require_kernel_input(x, "x")
+    cb.require_kernel_input(ct, "ct")
+    gx = torch.empty_like(x)
+    err = cb.library().plb_grid_mass_bwd(
+        x.data_ptr(), ct.data_ptr(), gx.data_ptr(), n, sim.n_grid, sim.inv_dx,
+        sim.p_mass, x.device.index, cb.stream_of(x))
+    cb.check(err, "grid_mass_bwd")
+    launches["grid_mass_bwd"] += 1
+    return gx
+
+
+class GridMass(torch.autograd.Function):
+    """x -> grid_m: forward K7, backward K7-bwd (saves x)."""
+
+    @staticmethod
+    def forward(ctx, x, scene):
+        ctx.scene = scene
+        ctx.save_for_backward(x)
+        return _launch_grid_mass(scene, x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (x,) = ctx.saved_tensors
+        return grid_mass_bwd(ctx.scene, x, ct.contiguous()), None
+
+
+def _launch_g2p(scene: SceneSpec, x, grid_v):
     cb.require_kernel_input(x, "x")
     cb.require_kernel_input(grid_v, "grid_v")
+    n, sim = x.shape[0], scene.simulator
     new_v = torch.empty((n, 3), device=x.device, dtype=torch.float32)
     new_C = torch.empty((n, 3, 3), device=x.device, dtype=torch.float32)
     new_x = torch.empty((n, 3), device=x.device, dtype=torch.float32)
@@ -140,3 +201,86 @@ def g2p(scene: SceneSpec, x, grid_v):
     cb.check(err, "g2p")
     launches["g2p"] += 1
     return new_v, new_C, new_x
+
+
+def g2p_bwd(scene: SceneSpec, x, grid_v, ct_v, ct_C, ct_x):
+    """The K6 kernel: cotangents of (new_v, new_C, new_x) -> (dx (n, 3),
+    d grid_v (G^3, 3)), the VJP of `g2p_plain` away from the clamp's ties.
+    CUDA tensors only."""
+    n, sim = x.shape[0], scene.simulator
+    cb.require(x, "x", (n, 3), x.device)
+    cb.require(grid_v, "grid_v", (sim.n_grid ** 3, 3), x.device)
+    for t, name, shape in ((ct_v, "ct_v", (n, 3)), (ct_C, "ct_C", (n, 3, 3)),
+                           (ct_x, "ct_x", (n, 3))):
+        cb.require(t, name, shape, x.device)
+    for t, name in ((x, "x"), (grid_v, "grid_v"), (ct_v, "ct_v"), (ct_C, "ct_C"),
+                    (ct_x, "ct_x")):
+        cb.require_kernel_input(t, name)
+    gx = torch.empty_like(x)
+    g_grid = torch.zeros_like(grid_v)
+    err = cb.library().plb_g2p_bwd(
+        x.data_ptr(), grid_v.data_ptr(), ct_v.data_ptr(), ct_C.data_ptr(),
+        ct_x.data_ptr(), gx.data_ptr(), g_grid.data_ptr(), n, sim.n_grid, sim.inv_dx,
+        sim.dt, 1.0 - 3 * sim.dx, x.device.index, cb.stream_of(x))
+    cb.check(err, "g2p_bwd")
+    launches["g2p_bwd"] += 1
+    return gx, g_grid
+
+
+class G2P(torch.autograd.Function):
+    """(x, grid_v) -> (new_v, new_C, new_x): forward K5, backward K6 (saves
+    x, grid_v)."""
+
+    @staticmethod
+    def forward(ctx, x, grid_v, scene):
+        ctx.scene = scene
+        ctx.save_for_backward(x, grid_v)
+        return _launch_g2p(scene, x, grid_v)
+
+    @staticmethod
+    def backward(ctx, ct_v, ct_C, ct_x):
+        x, grid_v = ctx.saved_tensors
+        gx, g_grid = g2p_bwd(ctx.scene, x, grid_v, ct_v.contiguous(), ct_C.contiguous(),
+                             ct_x.contiguous())
+        return gx, g_grid, None
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _check_particles(x, v, affine):
+    n = x.shape[0]
+    for t, name, shape in ((x, "x", (n, 3)), (v, "v", (n, 3)),
+                           (affine, "affine", (n, 3, 3))):
+        cb.require(t, name, shape, x.device)
+
+
+def p2g(scene: SceneSpec, x, v, affine):
+    """-> grid4 (G^3, 4); the K3 kernel (backward K4) on CUDA, `p2g_plain`
+    on the CPU."""
+    _check_particles(x, v, affine)
+    if x.device.type == "cpu":
+        return p2g_plain(scene, x, v, affine)
+    return P2G.apply(x, v, affine, scene)
+
+
+def grid_mass(scene: SceneSpec, x):
+    """-> grid_m (G^3,); the mass-only P2G kernel (K7 forward, backward K7
+    backward) on CUDA, `grid_mass_plain` on the CPU."""
+    cb.require(x, "x", (x.shape[0], 3), x.device)
+    if x.device.type == "cpu":
+        return grid_mass_plain(scene, x)
+    return GridMass.apply(x, scene)
+
+
+def g2p(scene: SceneSpec, x, grid_v):
+    """-> (new_v, new_C, new_x); the K5 kernel (backward K6) on CUDA,
+    `g2p_plain` on the CPU."""
+    n = x.shape[0]
+    sim = scene.simulator
+    cb.require(x, "x", (n, 3), x.device)
+    cb.require(grid_v, "grid_v", (sim.n_grid ** 3, 3), x.device)
+    if x.device.type == "cpu":
+        return g2p_plain(scene, x, grid_v)
+    return G2P.apply(x, grid_v, scene)

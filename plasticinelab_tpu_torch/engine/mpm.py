@@ -1,7 +1,8 @@
-"""MLS-MPM env step with von Mises plasticity, forward only.
+"""Differentiable MLS-MPM env step with von Mises plasticity.
 
 Counterpart of `plasticinelab_tpu/engine/mpm.py:837-932` (`make_controls`,
-`substep`, `env_step`, `env_step_with_grid_m`). Behavioral reference:
+`substep`, `env_step`, `env_step_with_grid_m`) and of its `resolve_remat`
+(:386-422). Behavioral reference:
 plb/engine/mpm_simulator.py (p2g 157-184, grid_op 189-221, g2p 223-243,
 substep 245-257, step 365-376).
 
@@ -16,7 +17,10 @@ adds the mass-only P2G of the final positions for the loss
 (`cuda_transfer.grid_mass`, K7 forward). Each of these dispatches to its
 CUDA kernel for CUDA tensors and to its plain version on the CPU.
 `PLAIN_OPS` runs the same steps through the plain versions on any device,
-to hold the kernels against them.
+to hold the kernels against them. Both are differentiable in the state and
+the actions: on CUDA each kernel's autograd Function runs its backward
+kernel (K2, K4, K8 backward, K6, K7 backward); the plain versions go
+through torch.autograd.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ from . import primitives as prim
 from .state import Controls, Materials, SimState
 
 __all__ = ["Ops", "KERNEL_OPS", "PLAIN_OPS", "make_controls", "substep",
-           "env_step", "env_step_with_grid_m"]
+           "env_step", "env_step_with_grid_m", "resolve_remat"]
 
 
 class Ops(NamedTuple):
@@ -52,12 +56,16 @@ PLAIN_OPS = Ops(cuda_stress.stress_affine_plain, cuda_transfer.p2g_plain,
 
 def make_controls(scene: SceneSpec, action, device, dtype) -> Controls:
     """Full action vector (action_dim,) -> per-substep Controls, clipped to
-    [-1, 1] (reference primitives.py:289-293). action None means zeros."""
+    [-1, 1] (reference primitives.py:289-293). action None means zeros. A
+    tensor action stays in the autograd graph."""
     n_sub = scene.simulator.substeps
     offs = scene.action_dims
     if action is not None:
-        action = torch.clamp(
-            torch.as_tensor(action, dtype=dtype, device=device).reshape(-1), -1.0, 1.0)
+        action = torch.as_tensor(action, dtype=dtype, device=device).reshape(-1)
+        # min(max(., -1), 1) as the reference's clip: at a bound the
+        # gradient splits in half, where torch.clamp would pass it whole
+        one = action.new_ones(())
+        action = torch.minimum(torch.maximum(action, -one), one)
     vs, ws, gs = [], [], []
     for i, p in enumerate(scene.primitives):
         if action is None or p.action_dim == 0:
@@ -115,3 +123,43 @@ def env_step_with_grid_m(scene: SceneSpec, mats: Materials, state: SimState,
     (new_state, grid_m (G^3,))."""
     state = env_step(scene, mats, state, action, softness, ops)
     return state, ops.grid_mass(scene, state.x)
+
+
+# Bytes one substep keeps alive for the backward when nothing is recomputed
+# ("none"), through the kernels, float32: per grid cell the grid4 GridOp
+# saves (16 B) and the grid velocities G2P saves (12 B); per particle the
+# substep's state (x, v, C, F: 96 B), the affine P2G saves (36 B) and what
+# the peak backward adds. Measured on the card: 8.346 MiB per substep over
+# a 50-step Move-v1 trajectory gradient (10,000 particles, 64^3 grid; H100
+# 80GB HBM3, PERF.md), which sets the per-particle share to 141 B.
+_BYTES_PER_PARTICLE = 141
+_BYTES_PER_CELL = 28
+# share of the free device memory a rollout's stored substeps may take
+_REMAT_BUDGET = 0.8
+
+
+def substep_bytes(scene: SceneSpec) -> int:
+    """Device bytes one substep keeps for the backward under remat "none"."""
+    sim = scene.simulator
+    return sim.n_particles * _BYTES_PER_PARTICLE + sim.n_grid ** 3 * _BYTES_PER_CELL
+
+
+def resolve_remat(scene: SceneSpec, horizon: int, device) -> str:
+    """The cheapest rematerialisation policy for a `horizon`-step rollout's
+    backward (`plasticinelab_tpu/engine/mpm.py:resolve_remat`, with this
+    card's sizes):
+
+    - "none": keep every substep's saved tensors (no recompute);
+    - "env_step": keep one state per env step and recompute each env step's
+      substeps in the backward (torch.utils.checkpoint), so one env step's
+      saved tensors live at a time.
+
+    "none" where horizon x substeps x `substep_bytes` fits in
+    `_REMAT_BUDGET` of the free memory `torch.cuda.mem_get_info` reports;
+    on the CPU, "none"."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "none"
+    free, _ = torch.cuda.mem_get_info(device)
+    need = horizon * scene.simulator.substeps * substep_bytes(scene)
+    return "none" if need <= _REMAT_BUDGET * free else "env_step"

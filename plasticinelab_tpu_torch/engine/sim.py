@@ -1,19 +1,21 @@
 """Scene facade: particles, physics, loss and observation of one env.
 
-Counterpart of `plasticinelab_tpu/engine/sim.py:PhysicsEnv`, forward only:
-`initialize`, the fused `step` (env step + loss + observation),
-`compute_loss` (reward, incremental IoU), `get_obs`, `get_state` /
-`set_state` and `retarget`. The API follows the reference composition root
-plb/engine/taichi_env.py. The trajectory gradient and rendering are not
-ported yet.
+Counterpart of `plasticinelab_tpu/engine/sim.py:PhysicsEnv`: `initialize`,
+the fused `step` (env step + loss + observation), `compute_loss` (reward,
+incremental IoU), `get_obs`, `get_state` / `set_state`, `retarget`, and
+the trajectory gradient `rollout_value_and_grad` (:271-309). The API
+follows the reference composition root plb/engine/taichi_env.py. Rendering
+is not ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Any, Dict, List
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config.spec import SceneSpec
 from . import cuda_transfer, mpm
@@ -34,6 +36,43 @@ ASSET_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."
                           "plasticinelab_tpu", "envs", "assets")
 
 _LOSS_KEYS = ("loss", "contact_loss", "density_loss", "sdf_loss", "iou")
+
+
+def _fields(state: SimState):
+    return (state.x, state.v, state.C, state.F, state.prim_pos, state.prim_rot,
+            state.prim_gap)
+
+
+def rollout_losses(scene, mats, loss_state, state0: SimState, actions: torch.Tensor,
+                   softness: float, remat: str = "none", ops: mpm.Ops = mpm.KERNEL_OPS):
+    """Roll `state0` through the (horizon, action_dim) `actions` -> (per-step
+    rows (loss, sdf_loss, density_loss, contact_loss, iou) (horizon, 5), the
+    IoU without gradient; final state), differentiable in the actions
+    (`plasticinelab_tpu/engine/sim.py:284-301`). Each step's loss is the
+    full-grid loss of the state after it, from `env_step_with_grid_m`'s grid
+    mass. remat "env_step" recomputes each env step in the backward
+    (torch.utils.checkpoint) instead of keeping its substeps; "none" keeps
+    everything (`mpm.resolve_remat`)."""
+    if remat not in ("none", "env_step"):
+        raise ValueError(f"remat must be 'none' or 'env_step', got {remat!r}")
+
+    def step(*args):
+        state, action = SimState(*args[:7]), args[7]
+        st, gm = mpm.env_step_with_grid_m(scene, mats, state, action, softness, ops)
+        info = losses_mod.loss_and_components(scene, loss_state, st, gm)
+        comps = torch.stack([info["loss"], info["sdf_loss"], info["density_loss"],
+                             info["contact_loss"], info["iou"].detach()])
+        return (*_fields(st), comps)
+
+    state, rows = state0, []
+    for action in actions:
+        if remat == "env_step":
+            out = checkpoint(step, *_fields(state), action, use_reentrant=False)
+        else:
+            out = step(*_fields(state), action)
+        state = SimState(*out[:7])
+        rows.append(out[7])
+    return torch.stack(rows), state
 
 
 class PhysicsEnv:
@@ -172,3 +211,28 @@ class PhysicsEnv:
         self._is_copy = is_copy
         self._reset_loss_tracker()
 
+
+    # ------------------------------------------------------------------
+    # the differentiable rollout (reference solver.py:31-44 under ti.Tape)
+    # ------------------------------------------------------------------
+    def rollout_value_and_grad(self, state: SimState, actions, softness: float):
+        """Loss summed over a whole action trajectory and its gradient with
+        respect to the (horizon, action_dim) actions -> (loss 0-d tensor,
+        grad (horizon, action_dim) tensor, final state), all detached. The
+        backward runs the kernels' backward kernels on CUDA; its remat
+        policy comes from `mpm.resolve_remat` and is kept in `last_remat`."""
+        actions = torch.as_tensor(actions, dtype=self.dtype, device=self.device)
+        actions = actions.detach().clone().requires_grad_(True)
+        # the particle state is differentiated too, and its gradient dropped,
+        # so that the first substep runs the same backward as every other (as
+        # in the reference's scan): one launch of each substep backward
+        # kernel per substep
+        particles = [t.detach().requires_grad_(True) for t in (state.x, state.v, state.C, state.F)]
+        state = dataclasses.replace(state, **dict(zip("xvCF", particles)))
+        self.last_remat = mpm.resolve_remat(self.scene, actions.shape[0], self.device)
+        with torch.enable_grad():
+            comps, final = rollout_losses(self.scene, self.mats, self.loss_state, state,
+                                          actions, softness, self.last_remat)
+            loss = comps[:, 0].sum()
+            grad = torch.autograd.grad(loss, [actions, *particles])[0]
+        return loss.detach(), grad, SimState(*(t.detach() for t in _fields(final)))

@@ -1,4 +1,4 @@
-"""Batched 3x3 SVD by cyclic Jacobi, forward only.
+"""Batched 3x3 SVD by cyclic Jacobi, with the damped-eigengap backward.
 
 Counterpart of the forward of `plasticinelab_tpu/engine/svd3.py`
 (`_svd3_fwd_impl`): eigendecomposition of F^T F by 6 cyclic Jacobi sweeps
@@ -7,9 +7,13 @@ network (descending), det(V) = +1 by flipping V's last column, U by a
 Gram-Schmidt with fallbacks, and signed singular values (McAdams
 convention: det(U) = det(V) = +1, the sign lands on the smallest value, so
 R = U V^T is a proper rotation). `torch.linalg.svd` follows other sort and
-sign conventions, so it is not used. The CUDA stress kernel
-(`csrc/stress.cu`) runs the same steps per particle; the damped-eigengap
-backward comes with the backward slice.
+sign conventions, and its backward is undamped, so it is not used. The CUDA
+stress kernels (`csrc/stress.cu`) run the same steps per particle.
+
+`Svd3` is the differentiable form: its backward is the eigengap formula of
+`plasticinelab_tpu/engine/svd3.py:_svd3_vjp_bwd` (:205-235), the
+reference's backward_svd (plb/engine/mpm_simulator.py:97-115) with the
+inverse eigengap damped to gap / (gap^2 + eps^2) (`set_vjp_gap_mode`).
 
 Matrices are handled as nested lists of (n,) component tensors, so every
 operation is elementwise over the particle batch.
@@ -18,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["svd3"]
+__all__ = ["svd3", "Svd3", "set_vjp_gap_mode", "gap_mode"]
 
 _N_SWEEPS = 6  # cyclic Jacobi sweeps; 3x3 converges quadratically
 
@@ -140,3 +144,66 @@ def svd3(F: torch.Tensor):
 
     stack33 = lambda M: torch.stack([torch.stack(r, dim=-1) for r in M], dim=-2)  # noqa: E731
     return stack33(U), torch.stack(sig, dim=-1), stack33(V)
+
+
+# Backward eigengap handling. The reference hard-clamps the inverse gap at
+# 1e-6 ("reference"), adequate in its float64 simulation; in float32 the
+# ~1e6 amplification of rounding noise at (near-)repeated singular values
+# compounds through long rollouts. "damped" replaces 1/clamp(gap) by the
+# Lorentzian gap/(gap^2 + eps^2): the same for well-separated singular
+# values, bounded by 1/(2 eps) at degeneracy. "zero" drops the U/V rotation
+# terms (an ablation).
+_GAP_MODES = ("reference", "damped", "zero")
+_gap = {"mode": "damped", "eps": 1e-3}  # eps: the float32 damping
+_GAP_EPS_F64 = 1e-6                      # float64: the reference clamp scale
+
+
+def set_vjp_gap_mode(mode: str, eps: float = 1e-2) -> None:
+    """Set the SVD backward's eigengap regularization for every later
+    backward (float32 damping `eps`; float64 keeps 1e-6)."""
+    if mode not in _GAP_MODES:
+        raise ValueError(f"gap mode must be one of {_GAP_MODES}, got {mode!r}")
+    _gap["mode"] = mode
+    _gap["eps"] = eps
+
+
+def gap_mode(dtype: torch.dtype):
+    """(mode id, eps) of the backward for a dtype; the mode id indexes
+    ("reference", "damped", "zero"), as the CUDA stress backward takes it."""
+    eps = _gap["eps"] if dtype == torch.float32 else _GAP_EPS_F64
+    return _GAP_MODES.index(_gap["mode"]), eps
+
+
+def _inv_gap(gap, dtype):
+    mode, eps = gap_mode(dtype)
+    if mode == 0:  # reference clamp |gap| >= 1e-6
+        return 1.0 / torch.where(gap >= 0, torch.clamp(gap, min=1e-6),
+                                 torch.clamp(gap, max=-1e-6))
+    if mode == 1:
+        return gap / (gap * gap + eps * eps)
+    return torch.zeros_like(gap)
+
+
+class Svd3(torch.autograd.Function):
+    """svd3 with the damped-eigengap backward: F (n,3,3) -> (U, sigma, V)."""
+
+    @staticmethod
+    def forward(ctx, F):
+        U, sig, V = svd3(F)
+        ctx.save_for_backward(U, sig, V)
+        return U, sig, V
+
+    @staticmethod
+    def backward(ctx, gU, gsig, gV):
+        U, sig, V = ctx.saved_tensors
+        s = sig * sig
+        gap = s[..., None, :] - s[..., :, None]  # gap[i, j] = s_j - s_i
+        Fm = _inv_gap(gap, U.dtype) * (1.0 - torch.eye(3, dtype=U.dtype, device=U.device))
+        Ut, Vt = U.transpose(-1, -2), V.transpose(-1, -2)
+        UtgU = Ut @ gU
+        inner_u = Fm * (UtgU - UtgU.transpose(-1, -2))
+        VtgV = Vt @ gV
+        inner_v = Fm * (VtgV - VtgV.transpose(-1, -2))
+        mid = inner_u * sig[..., None, :] + sig[..., :, None] * inner_v \
+            + torch.diag_embed(gsig)
+        return U @ mid @ Vt
