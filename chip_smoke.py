@@ -25,17 +25,36 @@ Phases, each fatal on failure:
    actions, whose launch counts prove it ran through the backward kernels,
    timed, with its peak memory and remat policy;
 8. solve: `Solver.solve_device`, 3 Adam iterations on Move-v1, horizon 50;
-9. device times: each kernel and plain version under torch.profiler, after
-   the slice (an active profiler slows every later launch).
+9. voxelize kernel: K9 against its plain version at Move-v1 shapes (the
+   task's initial 10,000-particle cloud), at the frame's 168^3 grid
+   (dist_scale 0.2) and the observation's 84^3 grid (0.4), bit for bit;
+10. render reference: the Move-v1 initial-state packed volumes (unsaturated
+   cells, sdf byte sum, CRC32) and 8 probe rays (plasticine, spheres,
+   ground) against values computed by the reference package;
+11. render: a 512^2 x 50 spp `env.render()` of Move-v1 after 5 steps,
+   timed; the same frame through the kernel and through the plain
+   voxelizer from one seeded sampler, identical; `make("Move-v1",
+   obs_mode="rgb")` reset + 50 steps, whose launch counts prove that every
+   observation went through K9 (51 launches); `solve_action` with 5-step
+   episodes and 2 Adam iterations, 5 images written;
+12. device times: each kernel and plain version under torch.profiler, and
+   the device's busy share in an rgb env step and a 1-spp frame, after
+   everything else (an active profiler slows every later launch).
 Prints a JSON line of the kernels (`ms` and `plain_ms`: device time per call
 from torch.profiler; for a backward kernel, the plain version's time is that
-of its autograd backward alone), then as the last line {"ok": true,
-"device": {...}}.
+of its autograd backward alone; `bound_ms`: the least time of the same work
+on an H100 at its published peaks, from this run's inputs; `library_ms`:
+null, no single PyTorch call computes any of these functions), then as the
+last line {"ok": true, "device": {...}}.
 """
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -117,6 +136,56 @@ HORIZON = 50
 TRAJ_RUNS = 3
 SOLVE_ITERS = 3
 
+# The Move-v1 initial state's packed volumes, computed by the reference
+# package (`Renderer._packed_volume`, its scatter path, float32 on the CPU):
+# cells with an sdf byte below 255, the sum of the sdf bytes, and the CRC32
+# of the little-endian uint32 volume. Equal on the card, or the voxelizer
+# is wrong.
+REF_VOLUMES = {"frame": dict(unsaturated=33719, sdf_sum=1203810177, crc32=1505687680),
+               "obs": dict(unsaturated=4223, sdf_sum=150476495, crc32=2100524766)}
+# Move-v1 initial state, `Renderer.probe_rays` of these rays (shape and
+# primitives on, ghost off) by the reference package on the CPU: 3 hit the
+# plasticine, 3 a sphere, 2 the ground. Bounds: distances 1e-3 absolute
+# (float32 march; sums of 8 corner terms in another order may move a
+# threshold crossing within the refinement's h/8 = 1.25e-3 bracket),
+# normals 1e-2 (the normal of the trilinear field at that point), colours
+# 1e-2 (trilinear colour at that point).
+PROBE_O = ((0.676, 1.5, 0.752), (0.676, 0.562, 3.0), (0.3, 0.9, 1.2), (0.2, 0.562, 0.7516),
+           (1.2, 0.5619, 0.7516), (0.79, 0.562, 2.0), (0.2, 1.0, 0.2), (0.5, 1.2, 4.0))
+PROBE_D = ((0.0, -1.0, 0.0), (0.0, 0.0, -1.0),
+           (0.5566102266311646, -0.5003570914268494, -0.6631951928138733),
+           (1.0, 0.0, 0.0), (-1.0, 0.0, 0.0), (0.0, 0.0, -1.0), (0.0, -1.0, 0.0),
+           (-0.051349617540836334, -0.3080976903438568, -0.9499679207801819))
+PROBE_CLOSEST = (0.83694315, 2.1467724, 0.57519835, 0.3457144, 0.39428574, 1.2220218,
+                 1.002, 3.90136)
+PROBE_NORMAL = ((-0.06347261369228363, 0.9979826807975769, -0.0013973878230899572),
+                (-0.09832314401865005, 0.022824786603450775, 0.9948927164077759),
+                (-0.44960907101631165, 0.5519470572471619, 0.702286422252655),
+                (-0.9999960660934448, 0.002793468302115798, 6.556504376931116e-05),
+                (0.9999998807907104, -0.0005384280229918659, 6.556503649335355e-05),
+                (0.47619137167930603, 0.0027934706304222345, 0.8793372511863708),
+                (0.0, 1.0, 0.0), (0.0, 1.0, 0.0))
+PROBE_COLOR = ((0.49804688, 0.0, 0.0),) * 3 + ((0.7, 0.7, 0.7),) * 3 + (
+    (0.105000004, 0.175, 0.24499999),) * 2
+PROBE_TOL = {"closest": 1e-3, "normal": 1e-2, "color": 1e-2}
+RENDER_STEPS = 5      # Move-v1 steps before the frame
+RGB_STEPS = 50        # rgb-observation env steps
+SOLVE_ACTION_T = 5    # solve_action's episode length; 2 Adam iterations
+
+# The card's published peaks (H100 SXM, NVIDIA's data sheet, dense, at
+# 700 W): HBM bytes/s and float32 operations/s outside the tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+# Operations per item of each kernel, counted from its source (an add,
+# multiply, compare, sqrt, exp or log is one; an fma two; index arithmetic
+# not counted): per particle for the stress and transfer kernels, per cell
+# with mass for the grid update, per (particle, offset) update for the
+# voxelizer. Bytes set every bound at Move-v1 shapes: the operations take
+# under half the time of the bytes except for K2 (~0.94 of it).
+OPS_PER_ITEM = {"stress_affine": 1500, "stress_affine_bwd": 4000, "p2g": 900,
+                "p2g_bwd": 1800, "grid_mass": 150, "grid_mass_bwd": 300, "g2p": 700,
+                "g2p_bwd": 1400, "grid_op": 300, "grid_op_bwd": 1500, "voxelize": 25}
+
 REPLACES = {
     "stress_affine": "plasticinelab_tpu/engine/pallas_stress.py:201",
     "p2g": "plasticinelab_tpu/engine/pallas_local.py:163",
@@ -128,6 +197,7 @@ REPLACES = {
     "grid_mass_bwd": "plasticinelab_tpu/engine/pallas_local.py:970",
     "grid_op_bwd": "plasticinelab_tpu/engine/pallas_gridop.py:97",
     "g2p_bwd": "plasticinelab_tpu/engine/pallas_local.py:388",
+    "voxelize": "plasticinelab_tpu/engine/renderer/pallas_voxelize.py:69",
 }
 SOURCES = {
     "stress_affine": "plasticinelab_tpu_torch/csrc/stress.cu",
@@ -140,6 +210,7 @@ SOURCES = {
     "grid_mass_bwd": "plasticinelab_tpu_torch/csrc/transfer.cu",
     "grid_op_bwd": "plasticinelab_tpu_torch/csrc/gridop.cu",
     "g2p_bwd": "plasticinelab_tpu_torch/csrc/transfer.cu",
+    "voxelize": "plasticinelab_tpu_torch/csrc/voxelize.cu",
 }
 SHAPE_PARAMS = {
     "Sphere": dict(radius=0.06),
@@ -191,6 +262,19 @@ def device_time(fn, reps=KERNEL_REPS, attempts=3):
         if dev_us > 0:
             return dev_us / 1e3 / reps
     return None
+
+
+def bound(name, tensors, items):
+    """(bound_ms, bound_by): the least time an H100 needs for a call whose
+    inputs and outputs are `tensors` (each read or written once) and whose
+    work is `items` x OPS_PER_ITEM[name] float32 operations."""
+    t_bytes = sum(t.numel() * t.element_size() for t in tensors) / PEAK_BYTES_S
+    t_ops = items * OPS_PER_ITEM[name] / PEAK_F32_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
 
 
 def compare(name, got, want, tol, flip_budget=0, per_row=False):
@@ -285,26 +369,31 @@ def phase_kernels():
     grid_v = t(rng.standard_normal((G ** 3, 3)) * 0.5)
     results = {}
 
-    def record(name, err, kern, plain):
+    def record(name, err, kern, plain, inputs, items):
         k_wall, p_wall = wall_time(kern), wall_time(plain)
-        results[name] = dict(max_abs_err=err, ms=k_wall, plain_ms=p_wall, calls=(kern, plain))
-        log(f"  {name:28s} wall ms/call: kernel {k_wall:.4f}  plain {p_wall:.4f}")
+        b_ms, b_by = bound(name, list(inputs) + list(as_tuple(kern())), items)
+        results[name] = dict(max_abs_err=err, ms=k_wall, plain_ms=p_wall, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None, calls=(kern, plain))
+        log(f"  {name:28s} wall ms/call: kernel {k_wall:.4f}  plain {p_wall:.4f}  "
+            f"bound {b_ms:.5f} ({b_by})")
 
     k = lambda: cuda_stress.stress_affine(scene, mats, C, F)  # noqa: E731
     p = lambda: cuda_stress.stress_affine_plain(scene, mats, C, F)  # noqa: E731
-    record("stress_affine", compare("stress_affine", k(), p(), TOL["stress_affine"]), k, p)
+    record("stress_affine", compare("stress_affine", k(), p(), TOL["stress_affine"]), k, p,
+           (C, F), n)
 
     k = lambda: (cuda_transfer.p2g(scene, x, v, aff),)  # noqa: E731
     p = lambda: (cuda_transfer.p2g_plain(scene, x, v, aff),)  # noqa: E731
-    record("p2g", compare("p2g", k(), p(), TOL["p2g"]), k, p)
+    record("p2g", compare("p2g", k(), p(), TOL["p2g"]), k, p, (x, v, aff), n)
 
     k = lambda: (cuda_transfer.grid_mass(scene, x),)  # noqa: E731
     p = lambda: (cuda_transfer.grid_mass_plain(scene, x),)  # noqa: E731
-    record("grid_mass", compare("grid_mass (p2g MASS_ONLY)", k(), p(), TOL["grid_mass"]), k, p)
+    record("grid_mass", compare("grid_mass (p2g MASS_ONLY)", k(), p(), TOL["grid_mass"]), k, p,
+           (x,), n)
 
     k = lambda: cuda_transfer.g2p(scene, x, grid_v)  # noqa: E731
     p = lambda: cuda_transfer.g2p_plain(scene, x, grid_v)  # noqa: E731
-    record("g2p", compare("g2p", k(), p(), TOL["g2p"]), k, p)
+    record("g2p", compare("g2p", k(), p(), TOL["g2p"]), k, p, (x, grid_v), n)
 
     # grid update on a realistic grid: P2G of the cloud with O(1) velocities
     grid4 = cuda_transfer.p2g_plain(scene, x, v, sim.p_mass * C)
@@ -327,7 +416,8 @@ def phase_kernels():
     k = lambda: (cuda_gridop.grid_op(scene, grid4, pf, pf1, 666.0),)  # noqa: E731
     p = lambda: (cuda_gridop.grid_op_plain(scene, grid4, pf, pf1, 666.0),)  # noqa: E731
     err = compare("grid_op[Move-v1: 2 Spheres]", k(), p(), TOL["grid_op"], FLIP_BUDGET)
-    record("grid_op", err, k, p)
+    massive = int((grid4[:, 3] > 1e-12).sum())
+    record("grid_op", err, k, p, (grid4, *pf, *pf1), massive)
     return results
 
 
@@ -374,32 +464,37 @@ def phase_backward():
     ct3 = t(rng.standard_normal((G ** 3, 3)))
     results = {}
 
-    def record(name, err, kern, plain_bwd):
+    def record(name, err, kern, plain_bwd, inputs, items):
         k_wall, p_wall = wall_time(kern), wall_time(plain_bwd)
-        results[name] = dict(max_abs_err=err, ms=k_wall, plain_ms=p_wall,
-                             calls=(kern, plain_bwd))
-        log(f"  {name:28s} wall ms/call: kernel {k_wall:.4f}  plain backward {p_wall:.4f}")
+        b_ms, b_by = bound(name, list(inputs) + list(as_tuple(kern())), items)
+        results[name] = dict(max_abs_err=err, ms=k_wall, plain_ms=p_wall, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None, calls=(kern, plain_bwd))
+        log(f"  {name:28s} wall ms/call: kernel {k_wall:.4f}  plain backward {p_wall:.4f}  "
+            f"bound {b_ms:.5f} ({b_by})")
 
     want, p = plain_vjp(lambda c, f: cuda_stress.stress_affine_plain(scene, mats, c, f),
                         [C, F], [ct_nF, ct_aff])
     k = lambda: cuda_stress.stress_affine_bwd(scene, mats, C, F, ct_nF, ct_aff)  # noqa: E731
     record("stress_affine_bwd", compare("stress_affine_bwd (K2)", k(), want,
-                                        BWD_TOL["stress_affine_bwd"]), k, p)
+                                        BWD_TOL["stress_affine_bwd"]), k, p,
+           (C, F, ct_nF, ct_aff), n)
 
     want, p = plain_vjp(lambda a, b, c: cuda_transfer.p2g_plain(scene, a, b, c), [x, v, aff],
                         [ct4])
     k = lambda: cuda_transfer.p2g_bwd(scene, x, v, aff, ct4)  # noqa: E731
-    record("p2g_bwd", compare("p2g_bwd (K4)", k(), want, BWD_TOL["p2g_bwd"]), k, p)
+    record("p2g_bwd", compare("p2g_bwd (K4)", k(), want, BWD_TOL["p2g_bwd"]), k, p,
+           (x, v, aff, ct4), n)
 
     want, p = plain_vjp(lambda a: cuda_transfer.grid_mass_plain(scene, a), [x], [ctm])
     k = lambda: (cuda_transfer.grid_mass_bwd(scene, x, ctm),)  # noqa: E731
     record("grid_mass_bwd", compare("grid_mass_bwd (K7 backward)", k(), want,
-                                    BWD_TOL["grid_mass_bwd"]), k, p)
+                                    BWD_TOL["grid_mass_bwd"]), k, p, (x, ctm), n)
 
     want, p = plain_vjp(lambda a, g: cuda_transfer.g2p_plain(scene, a, g), [x, grid_v],
                         [ct_v, ct_C, ct_x])
     k = lambda: cuda_transfer.g2p_bwd(scene, x, grid_v, ct_v, ct_C, ct_x)  # noqa: E731
-    record("g2p_bwd", compare("g2p_bwd (K6)", k(), want, BWD_TOL["g2p_bwd"]), k, p)
+    record("g2p_bwd", compare("g2p_bwd (K6)", k(), want, BWD_TOL["g2p_bwd"]), k, p,
+           (x, grid_v, ct_v, ct_C, ct_x), n)
 
     def grid_op_check(label, sc, g4, pf, pf1, pose_tol):
         """K8 backward vs the plain VJP: d grid4 rows (flips counted) and
@@ -418,7 +513,7 @@ def phase_backward():
         compare(f"grid_op_bwd[{label}] d poses", (dposes,), (want_poses,), pose_tol)
         if not float(want_poses.abs().max()) > 0:
             raise AssertionError(f"grid_op_bwd[{label}]: no pose gradient to compare")
-        return err, k, p
+        return err, k, p, (g4, poses, ct3), int((g4[:, 3] > 1e-12).sum())
 
     grid4 = cuda_transfer.p2g_plain(scene, x, v, sim.p_mass * C)
     center = x_np.mean(axis=0)
@@ -625,6 +720,212 @@ def phase_slice():
     return launches, sps
 
 
+def move_textures_inputs():
+    """Move-v1 after reset: (its PhysicsEnv, x float32, colours int32) on
+    the card."""
+    import torch
+
+    from plasticinelab_tpu_torch.envs import make
+
+    env = make("Move-v1", device=DEVICE)
+    env.reset()
+    te = env.unwrapped.taichi_env
+    colors = torch.as_tensor(te.particle_colors, device=DEVICE)
+    return te, te.state.x.float().contiguous(), colors
+
+
+def grids(te):
+    """The frame's and the observation's renderers of Move-v1."""
+    from plasticinelab_tpu_torch.engine.renderer import Renderer
+    from plasticinelab_tpu_torch.engine.renderer.renderer import obs_scene
+
+    return {"frame": Renderer(te.scene, DEVICE), "obs": Renderer(obs_scene(te.scene, 64, 2), DEVICE)}
+
+
+def phase_voxelize():
+    """K9 vs its plain version at Move-v1 shapes, at both grids; the line's
+    entry is the observation grid's, the size of the rgb run's 51 launches."""
+    from plasticinelab_tpu_torch.engine.renderer import cuda_voxelize
+
+    te, x, colors = move_textures_inputs()
+    results = {}
+    for name, r in grids(te).items():
+        p = ((x - r.frame_bbox(x)[0]) * r.inv_dx).contiguous()
+        args = (p, colors, r.voxel_res, r.bake_size, r.dist_scale)
+        got = cuda_voxelize.voxelize(*args).long() & 0xFFFFFFFF
+        want = cuda_voxelize.voxelize_plain(*args).long() & 0xFFFFFFFF
+        differ = int((got != want).sum())
+        m = len(cuda_voxelize.offsets(r.bake_size, r.dist_scale))
+        log(f"phase voxelize kernel [{name}]: grid {r.voxel_res}, n={p.shape[0]}, {m} offsets, "
+            f"dist_scale {r.dist_scale:.6g}; cells that differ from the plain version: {differ}")
+        if differ:
+            # the fallback bound of tests/test_pallas_voxelize.py: sdf bytes
+            # within 1 on under 1e-3 of the cells, equal where they agree
+            dsdf = ((got >> 24) - (want >> 24)).abs()
+            same = dsdf == 0
+            if not (int(dsdf.max()) <= 1 and float((~same).float().mean()) < 1e-3
+                    and bool((got[same] == want[same]).all())):
+                raise AssertionError(f"voxelize [{name}]: kernel and plain version disagree")
+        kern = lambda a=args: cuda_voxelize.voxelize(*a)  # noqa: E731
+        plain = lambda a=args: cuda_voxelize.voxelize_plain(*a)  # noqa: E731
+        k_wall, p_wall = wall_time(kern), wall_time(plain)
+        b_ms, b_by = bound("voxelize", [p, colors, kern()], p.shape[0] * m)
+        log(f"  voxelize [{name}] wall ms/call: kernel {k_wall:.4f}  plain {p_wall:.4f}  "
+            f"bound {b_ms:.5f} ({b_by}); {int((got != 0xFFFFFFFF).sum())} cells written")
+        results[name] = dict(max_abs_err=float((got - want).abs().max()), ms=k_wall,
+                             plain_ms=p_wall, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                             calls=(kern, plain))
+    # the frame grid's entry is profiled and logged with the others but is
+    # not in the kernels line
+    return {"voxelize": results["obs"], "voxelize_frame": results["frame"]}
+
+
+def phase_render_reference():
+    import torch
+
+    log("phase render reference: Move-v1 initial state vs the reference package's values")
+    te, x, colors = move_textures_inputs()
+    for name, r in grids(te).items():
+        vol = r.packed_volume(x, colors, r.frame_bbox(x)[0]).cpu().numpy().view(np.uint32)
+        sdf = vol >> 24
+        got = dict(unsaturated=int((sdf < 255).sum()), sdf_sum=int(sdf.astype(np.int64).sum()),
+                   crc32=zlib.crc32(vol.astype("<u4").tobytes()))
+        log(f"  volume [{name}] port {got}  reference {REF_VOLUMES[name]}")
+        if got != REF_VOLUMES[name]:
+            raise AssertionError(f"the {name} volume differs from the reference package's")
+    r = te._new_renderer(te.scene)
+    s = te.state
+    got = r.probe_rays(x, colors, s.prim_pos, s.prim_rot, s.prim_gap, np.asarray(PROBE_O),
+                       np.asarray(PROBE_D))
+    for key, g, w in zip(("closest", "normal", "color"), got,
+                         (PROBE_CLOSEST, PROBE_NORMAL, PROBE_COLOR)):
+        err = float(np.abs(g - np.asarray(w, np.float32)).max())
+        log(f"  probe_rays {key:8s} max abs diff {err:.3e} (bound {PROBE_TOL[key]:.0e})")
+        if not err <= PROBE_TOL[key]:
+            raise AssertionError(f"probe_rays {key} differs from the reference package's")
+    torch.cuda.synchronize()
+
+
+def check_frame(img, shape):
+    if img.shape != shape or img.dtype != np.uint8:
+        raise AssertionError(f"bad frame: {img.shape} {img.dtype}")
+    if not 0 < img.mean() < 255:
+        raise AssertionError(f"blank frame, mean {img.mean()}")
+
+
+def phase_render():
+    import torch
+
+    from plasticinelab_tpu_torch.engine import cuda_gridop, cuda_stress, cuda_transfer
+    from plasticinelab_tpu_torch.engine.renderer import cuda_voxelize, renderer
+    from plasticinelab_tpu_torch.envs import make
+    from plasticinelab_tpu_torch.optimizer.solver import solve_action
+
+    mods = (cuda_stress, cuda_transfer, cuda_gridop, cuda_voxelize)
+    out = {}
+    # (a) one full-width frame after RENDER_STEPS steps
+    env = make("Move-v1", device=DEVICE)
+    env.reset()
+    rng = np.random.default_rng(SEED + 3)
+    for a in rng.uniform(-1, 1, (RENDER_STEPS, env.action_space.shape[0])):
+        env.step(a)
+    te = env.unwrapped.taichi_env
+    spec = te.scene.renderer
+    log(f"phase render: Move-v1 after {RENDER_STEPS} steps, {spec.image_res[0]}x"
+        f"{spec.image_res[1]} x {spec.spp} spp, depth {spec.max_ray_depth}, voxel grid "
+        f"{spec.voxel_res}")
+    for mod in mods:
+        mod.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = env.render(mode="rgb_array")
+    torch.cuda.synchronize()
+    out["frame_s"] = time.perf_counter() - t0
+    check_frame(img, (spec.image_res[1], spec.image_res[0], 3))
+    log(f"  frame {out['frame_s']:.3f} s (renderer set-up included); mean {img.mean():.4f}; "
+        f"voxelize launches {cuda_voxelize.launches['voxelize']}")
+    if cuda_voxelize.launches["voxelize"] != 1:
+        raise AssertionError("the frame did not voxelize through K9 once")
+
+    # (b) the same frame through the kernel and the plain voxelizer
+    r = te._renderer
+    imgs = []
+    for vox in (cuda_voxelize.voxelize, cuda_voxelize.voxelize_plain):
+        r.voxelize, r.uniform = vox, renderer.torch_sampler(DEVICE, SEED + 4)
+        t0 = time.perf_counter()
+        imgs.append(env.render(mode="rgb_array"))
+        torch.cuda.synchronize()
+        log(f"  frame through {vox.__name__}: {time.perf_counter() - t0:.3f} s")
+    r.voxelize, r.uniform = cuda_voxelize.voxelize, renderer.torch_sampler(DEVICE)
+    if not np.array_equal(imgs[0], imgs[1]):
+        raise AssertionError(f"kernel and plain voxelizer frames differ in "
+                             f"{int((imgs[0] != imgs[1]).any(-1).sum())} pixels")
+    log("  kernel and plain voxelizer frames identical")
+
+    # (c) rgb observations: reset + RGB_STEPS steps
+    envr = make("Move-v1", device=DEVICE, obs_mode="rgb")
+    for mod in mods:
+        mod.reset_launches()
+    obs, _ = envr.reset()
+    stamps = [time.perf_counter()]
+    for a in np.random.default_rng(SEED).uniform(-1, 1, (RGB_STEPS, 6)):
+        obs, rew, *_ = envr.step(a)
+        stamps.append(time.perf_counter())
+        check_frame(obs, (64, 64, 3))
+        if not np.isfinite(rew):
+            raise AssertionError("non-finite reward")
+    launches = {k: v for mod in mods for k, v in mod.launches.items()}
+    out["rgb_sps"] = RGB_STEPS / (stamps[-1] - stamps[0])
+    log(f"phase render rgb observations: reset + {RGB_STEPS} steps, launches {launches}; "
+        f"env steps/s {out['rgb_sps']:.3f}")
+    if launches["voxelize"] != RGB_STEPS + 1:
+        raise AssertionError(f"voxelize ran {launches['voxelize']} times, expected {RGB_STEPS + 1}")
+    out["voxelize_launches"] = launches["voxelize"]
+    tr = envr.unwrapped.taichi_env
+    obs_times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        tr.render_obs(64, 2)
+        torch.cuda.synchronize()
+        obs_times.append(time.perf_counter() - t0)
+    out["obs_ms"] = 1e3 * min(obs_times)
+    log(f"  render_obs 64x64 x 2 spp: best {out['obs_ms']:.3f} ms, median "
+        f"{1e3 * sorted(obs_times)[5]:.3f} ms")
+    out["env"], out["rgb_env"] = env, envr
+
+    # (d) solve_action: 2 Adam iterations of a SOLVE_ACTION_T-step episode
+    enva = make("Move-v1", device=DEVICE, max_episode_steps=SOLVE_ACTION_T)
+    args = SimpleNamespace(num_steps=2 * SOLVE_ACTION_T, softness=666.0, lr=0.1, optim="Adam")
+    with tempfile.TemporaryDirectory() as path:
+        t0 = time.perf_counter()
+        actions = solve_action(enva, path, None, args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        files = sorted(os.listdir(path))
+        for f in files:
+            if f.endswith(".npy"):
+                check_frame(np.load(os.path.join(path, f)), img.shape)
+    log(f"phase render solve_action: {len(files)} images {files}, {secs:.3f} s")
+    if len(files) != SOLVE_ACTION_T or not np.isfinite(actions).all():
+        raise AssertionError("solve_action did not write one image per step")
+    return out
+
+
+def busy_share(fn):
+    """(device busy ms, wall ms, busy share) of fn(): the device time of the
+    kernels, memsets and copies it ran (torch.profiler) over its own
+    unprofiled wall time."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy = device_time(fn, reps=1)
+    return busy, wall, (busy / wall if busy else None)
+
+
 def main():
     import torch
 
@@ -658,6 +959,10 @@ def main():
     # the backward kernels' counts come from the trajectory gradient's run
     launches.update({k: v for k, v in phase_gradient().items() if k.endswith("_bwd")})
     phase_solve()
+    results.update(phase_voxelize())
+    phase_render_reference()
+    render = phase_render()
+    launches["voxelize"] = render["voxelize_launches"]
     # after the slice: an active profiler slows every later launch
     log("phase device times (torch.profiler, ms per call)")
     for k, r in results.items():
@@ -667,6 +972,14 @@ def main():
             continue
         r["ms"], r["plain_ms"] = k_dev, p_dev
         log(f"  {k:28s} kernel {k_dev:.4f}  plain {p_dev:.4f}")
+    te = render["rgb_env"].unwrapped.taichi_env
+    busy, wall, share = busy_share(lambda: render["rgb_env"].step(np.zeros(6)))
+    log(f"  rgb env step: device busy {busy} ms of {wall:.3f} ms wall, busy share {share}")
+    busy, wall, share = busy_share(lambda: te.render_obs(64, 2))
+    log(f"  render_obs: device busy {busy} ms of {wall:.3f} ms wall, busy share {share}")
+    busy, wall, share = busy_share(lambda: render["env"].unwrapped.taichi_env.render(spp=1))
+    log(f"  512^2 frame at 1 spp: device busy {busy} ms of {wall:.3f} ms wall, busy share "
+        f"{share}")
 
     kernels = [dict(name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
                     launches=launches[k], **results[k]) for k in REPLACES]

@@ -131,8 +131,7 @@ class ShapeSpec:
 
 @dataclass(frozen=True)
 class RendererSpec:
-    """Reference default_config.py:39-57 (parsed; the renderer is not
-    ported yet)."""
+    """Reference default_config.py:39-57."""
 
     spp: int = 50
     max_ray_depth: int = 2

@@ -79,6 +79,8 @@ _SIGNATURES = {
     # gravity xyz, ground_friction, vmax, device, stream
     "plb_grid_op_bwd": [_P, _P, _P, _P, _P, _P, PrimTable, _I, _F, _F, _F, _F, _F,
                         _F, _F, _F, _I, _P],
+    # p, color, offs, vol, n, m, rx, ry, rz, scale, device, stream
+    "plb_voxelize": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _I, _P],
 }
 
 

@@ -2,10 +2,11 @@
 
 Counterpart of `plasticinelab_tpu/engine/sim.py:PhysicsEnv`: `initialize`,
 the fused `step` (env step + loss + observation), `compute_loss` (reward,
-incremental IoU), `get_obs`, `get_state` / `set_state`, `retarget`, and
-the trajectory gradient `rollout_value_and_grad` (:271-309). The API
-follows the reference composition root plb/engine/taichi_env.py. Rendering
-is not ported yet.
+incremental IoU), `get_obs`, `get_state` / `set_state`, `retarget`, the
+trajectory gradient `rollout_value_and_grad` (:271-309), and rendering:
+`render` (:314-340) and the visual observation `render_obs` (:342-381),
+through `renderer.Renderer`. The API follows the reference composition root
+plb/engine/taichi_env.py.
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ from torch.utils.checkpoint import checkpoint
 from ..config.spec import SceneSpec
 from . import cuda_transfer, mpm
 from . import losses as losses_mod
+from .renderer import Renderer
+from .renderer.renderer import obs_scene
 from .shapes import build_particles
 from .state import (
     SimState,
@@ -80,7 +83,7 @@ class PhysicsEnv:
     reference TaichiEnv."""
 
     def __init__(self, scene: SceneSpec, device="cuda"):
-        self.init_particles, _ = build_particles(scene.shapes)
+        self.init_particles, self.particle_colors = build_particles(scene.shapes)
         scene = scene.with_n_particles(len(self.init_particles))
         self.scene = scene
         self.device = torch.device(device)
@@ -90,6 +93,9 @@ class PhysicsEnv:
         self.softness = 666.0
         self._is_copy = True
         self.state: SimState = initial_state(scene, self.init_particles, self.device, self.dtype)
+        self._renderer = None
+        # the observation renderer and its render function, cached per (res, spp)
+        self._obs_renderer = self._obs_renderer_key = self._visual_obs_fn = None
         # the last fused step's obs and loss scalars stay on the device
         # (_pending) until compute_loss or get_obs fetches both in one
         # device-to-host copy (_obs_host, _loss_host); set by retarget
@@ -236,3 +242,54 @@ class PhysicsEnv:
             loss = comps[:, 0].sum()
             grad = torch.autograd.grad(loss, [actions, *particles])[0]
         return loss.detach(), grad, SimState(*(t.detach() for t in _fields(final)))
+
+    # ------------------------------------------------------------------
+    # rendering
+    # ------------------------------------------------------------------
+    def _state_args(self):
+        s = self.state
+        return s.x, self.particle_colors, s.prim_pos, s.prim_rot, s.prim_gap
+
+    def _new_renderer(self, scene: SceneSpec) -> Renderer:
+        r = Renderer(scene, self.device)
+        r.set_target_density(self.target_density / self.scene.simulator.p_mass)
+        return r
+
+    def render(self, mode="rgb_array", **kwargs):
+        """One frame at the scene's RendererSpec -> (H, W, 3) uint8. Modes
+        "human" (cv2 window) and "plt" (matplotlib) also show it
+        (reference taichi_env.py:68-70)."""
+        if not self._is_copy:
+            raise RuntimeError("The environment must be in the copy mode for render ...")
+        if self._renderer is None:
+            self._renderer = self._new_renderer(self.scene)
+        img = self._renderer.render_frame(*self._state_args(), **kwargs)
+        img = np.uint8(np.clip(img, 0, 1) * 255)
+        if mode == "human":
+            import cv2
+
+            cv2.imshow("x", img[..., ::-1])
+            cv2.waitKey(1)
+        elif mode == "plt":
+            import matplotlib.pyplot as plt
+
+            plt.imshow(img)
+            plt.show()
+        return img
+
+    def render_obs(self, res: int = 64, spp: int = 2, **kwargs) -> np.ndarray:
+        """Low-resolution observation render for visual RL -> (res, res, 3)
+        uint8: the same tracer on `obs_scene`'s half-resolution voxel grid,
+        all spp samples in one pass. Its renderer is its own, cached per
+        (res, spp), and leaves the state observation alone."""
+        if self._obs_renderer is None or self._obs_renderer_key != (res, spp):
+            self._obs_renderer = self._new_renderer(obs_scene(self.scene, res, spp))
+            self._obs_renderer_key = (res, spp)
+            self._visual_obs_fn = self._obs_renderer.build_obs_fn()
+        if kwargs:
+            # non-default flags (e.g. the goal ghost): the frame path
+            img = self._obs_renderer.render_frame(*self._state_args(), **kwargs)
+        else:
+            img = self._visual_obs_fn(*self._state_args()).cpu().numpy()
+        return np.uint8(np.clip(img, 0, 1) * 255)
+

@@ -29,8 +29,9 @@ def _parse(env_name: str):
 
 def make(env_name: str, device="cuda", sdf_loss: float = 10,
          density_loss: float = 10, contact_loss: float = 1,
-         soft_contact_loss: bool = False,
-         max_episode_steps: int = 50) -> PlasticineEnv:
+         soft_contact_loss: bool = False, max_episode_steps: int = 50,
+         obs_mode: str = "state", image_obs_res: int = 64,
+         image_obs_spp: int = 2) -> PlasticineEnv:
     task, version = _parse(env_name)
     scene = PlasticineEnv.load_scene(task, version)
     loss = dataclasses.replace(
@@ -40,4 +41,5 @@ def make(env_name: str, device="cuda", sdf_loss: float = 10,
     )
     scene = scene.replace(env=dataclasses.replace(scene.env, loss=loss))
     return PlasticineEnv(scene, device=device, cfg_path=f"{task}.yml",
-                         max_episode_steps=max_episode_steps)
+                         max_episode_steps=max_episode_steps, obs_mode=obs_mode,
+                         image_obs_res=image_obs_res, image_obs_spp=image_obs_spp)

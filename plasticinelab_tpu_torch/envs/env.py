@@ -1,7 +1,9 @@
-"""Gym-style environment over PhysicsEnv, state observations.
+"""Gym-style environment over PhysicsEnv.
 
-Counterpart of `plasticinelab_tpu/envs/env.py` with `obs_mode="state"`.
-Behavioral reference: plb/envs/env.py (obs layout :33-41, reward :43-57 via
+Counterpart of `plasticinelab_tpu/envs/env.py`: state observations (the
+reference layout) or, with `obs_mode="rgb"`, rendered
+`image_obs_res`^2 uint8 frames (the visual-RL mode; no reference
+counterpart). Behavioral reference: plb/envs/env.py (obs layout :33-41, reward :43-57 via
 loss deltas, NaN crash-dump guard :50-56). It keeps the gymnasium surface
 (`reset`, `step` -> (obs, reward, terminated, truncated, info),
 `action_space.shape`, `observation_space.shape`, `unwrapped`) without
@@ -46,8 +48,14 @@ class Box:
 
 class PlasticineEnv:
     def __init__(self, scene: SceneSpec, device="cuda", cfg_path: str = "",
-                 max_episode_steps: int = 50):
+                 max_episode_steps: int = 50, obs_mode: str = "state",
+                 image_obs_res: int = 64, image_obs_spp: int = 2):
+        if obs_mode not in ("state", "rgb"):
+            raise ValueError(f"obs_mode must be 'state' or 'rgb', got {obs_mode!r}")
         self.cfg_path = cfg_path
+        self.obs_mode = obs_mode
+        self._image_obs_res = image_obs_res
+        self._image_obs_spp = image_obs_spp
         self.taichi_env = PhysicsEnv(scene, device=device)
         self.taichi_env.initialize()
         self.taichi_env.set_copy(True)
@@ -56,7 +64,10 @@ class PlasticineEnv:
         self._elapsed_steps = 0
 
         obs, _ = self.reset()
-        self.observation_space = Box(-np.inf, np.inf, obs.shape)
+        if obs_mode == "rgb":
+            self.observation_space = Box(0, 255, obs.shape, dtype=np.uint8)
+        else:
+            self.observation_space = Box(-np.inf, np.inf, obs.shape)
         self.action_space = Box(-1.0, 1.0, (self.taichi_env.scene.action_dim,))
 
     @staticmethod
@@ -75,16 +86,22 @@ class PlasticineEnv:
         self.taichi_env.set_state(**self._init_state)
         self._recorded_actions = []
         self._elapsed_steps = 0
-        return self.taichi_env.get_obs(), {}
+        return self._get_obs(), {}
+
+    def _get_obs(self):
+        if self.obs_mode == "rgb":
+            return self.taichi_env.render_obs(res=self._image_obs_res, spp=self._image_obs_spp)
+        return self.taichi_env.get_obs()
 
     def step(self, action):
         self.taichi_env.step(action)
         loss_info = self.taichi_env.compute_loss()
         self._recorded_actions.append(action)
         self._elapsed_steps += 1
-        obs = self.taichi_env.get_obs()
+        obs = self._get_obs()
         r = loss_info["reward"]
-        if np.isnan(obs).any() or np.isnan(r):
+        obs_nan = obs.dtype != np.uint8 and np.isnan(obs).any()
+        if obs_nan or np.isnan(r):
             if np.isnan(r):
                 print("nan in r")
             with open(f"{self.cfg_path}_nan_action_{datetime.datetime.now()}", "wb") as f:
@@ -92,3 +109,6 @@ class PlasticineEnv:
             raise FloatingPointError("NaN in the observation or the reward")
         truncated = self._elapsed_steps >= self._max_episode_steps
         return obs, r, False, truncated, loss_info
+
+    def render(self, mode="rgb_array"):
+        return self.taichi_env.render(mode)

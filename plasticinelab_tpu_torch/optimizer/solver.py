@@ -12,7 +12,8 @@ its gradient with respect to the (horizon, action_dim) action matrix
   and fetches the per-iteration losses once per chunk. Like the reference
   package it recovers from a non-finite rollout: back to the best actions
   seen, fresh moments, half the step.
-`solve_action` renders and comes with the renderer.
+- `solve_action` is the command-line entry: solve, then replay the best
+  actions and write one rendered image per step.
 """
 from __future__ import annotations
 
@@ -238,3 +239,36 @@ class Solver:
             return np.random.uniform(-cfg.init_range, cfg.init_range,
                                      size=(cfg.horizon, action_dim))
         raise NotImplementedError(cfg.init_sampler)
+
+
+def solve_action(env, path, logger, args):
+    """Command-line entry (reference solver.py:86-101): optimise the actions
+    over one episode, then replay the best actions and write one image per
+    step into `path`: a PNG through cv2 where it is importable, else a
+    `.npy` of the (H, W, 3) uint8 frame. args: num_steps (rollout steps in
+    all, so n_iters = ceil(num_steps / episode length)), softness, lr,
+    optim."""
+    os.makedirs(path, exist_ok=True)
+    env.reset()
+    taichi_env: PhysicsEnv = env.unwrapped.taichi_env
+    T = env._max_episode_steps
+    solver = Solver(
+        taichi_env, logger, None,
+        n_iters=(args.num_steps + T - 1) // T, softness=args.softness, horizon=T,
+        **{"optim.lr": args.lr, "optim.type": args.optim, "init_range": 0.0001},
+    )
+    action = solver.solve_device()
+
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    for idx, act in enumerate(action):
+        env.step(act)
+        img = env.render(mode="rgb_array")
+        if cv2 is not None:
+            cv2.imwrite(f"{path}/{idx:04d}.png", img[..., ::-1])
+        else:
+            np.save(f"{path}/{idx:04d}.npy", img)
+    return action
+

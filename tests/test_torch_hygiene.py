@@ -54,4 +54,4 @@ def test_every_port_module_has_an_importer():
 
 def test_kernel_sources_are_in_the_package():
     cu = [os.path.basename(p) for p in _sources((".cu",))]
-    assert sorted(cu) == ["gridop.cu", "stress.cu", "transfer.cu"]
+    assert sorted(cu) == ["gridop.cu", "stress.cu", "transfer.cu", "voxelize.cu"]

@@ -14,17 +14,22 @@ from plasticinelab_tpu_torch.optimizer.solver import Solver
 from test_torch_slice import _goal
 
 
+def _scene(mod):
+    """The tiny float64 scene, from either package's spec module."""
+    sim = mod.SimulatorSpec(quality=0.25, n_particles=160, dtype="float64",
+                            yield_stress=200.0)
+    prim = mod.PrimitiveSpec(shape="Sphere", radius=0.05, init_pos=(0.4, 0.5, 0.5),
+                             friction=0.9, action_dim=3, action_scale=(0.01, 0.01, 0.01))
+    shape = mod.ShapeSpec(shape="sphere", init_pos=(0.5, 0.5, 0.5), radius=0.06,
+                          n_particles=160)
+    return mod.SceneSpec(simulator=sim, primitives=(prim,), shapes=(shape,),
+                         env=mod.EnvSpec(loss=mod.LossSpec(target_path=""),
+                                         n_observed_particles=20))
+
+
 @pytest.fixture(scope="module")
 def env():
-    sim = tspec.SimulatorSpec(quality=0.25, n_particles=160, dtype="float64",
-                              yield_stress=200.0)
-    prim = tspec.PrimitiveSpec(shape="Sphere", radius=0.05, init_pos=(0.4, 0.5, 0.5),
-                               friction=0.9, action_dim=3, action_scale=(0.01, 0.01, 0.01))
-    shape = tspec.ShapeSpec(shape="sphere", init_pos=(0.5, 0.5, 0.5), radius=0.06,
-                            n_particles=160)
-    scene = tspec.SceneSpec(simulator=sim, primitives=(prim,), shapes=(shape,),
-                            env=tspec.EnvSpec(loss=tspec.LossSpec(target_path=""),
-                                              n_observed_particles=20))
+    scene = _scene(tspec)
     env = PhysicsEnv(scene, device="cpu")
     env.retarget(_goal(scene.simulator.n_grid))
     return env
@@ -103,3 +108,29 @@ def test_device_solver_checkpoint_resume(env, tmp_path):
                                checkpoint_dir=str(tmp_path))
     np.testing.assert_allclose(second.iter_losses, full.iter_losses[2:], rtol=1e-12)
     np.testing.assert_allclose(best, full_best, atol=1e-12)
+
+
+def test_device_solver_matches_reference_iterate_by_iterate(env):
+    """Both packages' `solve_device` from the same seeded actions on the same
+    tiny float64 scene: 4 Adam iterations, lr 0.1, softness 666. The
+    per-iteration losses and the best actions agree to 1e-8 relative (the
+    same float64 rollout and update rule; only the summation order of the
+    transfers differs)."""
+    from plasticinelab_tpu.config import spec as jspec
+    from plasticinelab_tpu.engine.sim import PhysicsEnv as JaxPhysicsEnv
+    from plasticinelab_tpu.optimizer.solver import Solver as JaxSolver
+
+    jscene = _scene(jspec)
+    ref = JaxPhysicsEnv(jscene)
+    ref.retarget(_goal(jscene.simulator.n_grid))
+    init = _init_actions()
+    kw = {"optim.lr": 0.1, "optim.type": "Adam", "softness": 666.0}
+    theirs = JaxSolver(ref, None, None, n_iters=4, horizon=3, **kw)
+    their_best = theirs.solve_device(init_actions=init, chunk=4)
+    ours = Solver(env, None, None, n_iters=4, horizon=3, **kw)
+    our_best = ours.solve_device(init_actions=init, chunk=4)
+    assert len(set(theirs.iter_losses)) == 4  # the actions moved the loss
+    np.testing.assert_allclose(ours.iter_losses, theirs.iter_losses, rtol=1e-8)
+    np.testing.assert_allclose(ours.iter_ious, theirs.iter_ious, rtol=1e-8)
+    np.testing.assert_allclose(our_best, their_best, rtol=1e-8, atol=1e-12)
+    assert ours.best_loss == pytest.approx(theirs.best_loss, rel=1e-8)
