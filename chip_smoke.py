@@ -37,8 +37,21 @@ Phases, each fatal on failure:
    obs_mode="rgb")` reset + 50 steps, whose launch counts prove that every
    observation went through K9 (51 launches); `solve_action` with 5-step
    episodes and 2 Adam iterations, 5 images written;
-12. device times: each kernel and plain version under torch.profiler, and
-   the device's busy share in an rgb env step and a 1-spp frame, after
+12. vec kernels: the batched kernels (K3-b, K7-fwd-b, K5-b, K8-fwd-b) at
+   Move-v1 shapes for B = 8 envs against their plain versions, K5-b and
+   K8-fwd-b bit for bit per env to B = 1 launches of the same kernels,
+   K3-b and K7-fwd-b within tolerance of them; kernel and plain times at
+   B = 8 and B = 32;
+13. vec: `VecPlasticineEnv("Move-v1", batch=B, device="cuda")` for B = 1, 8
+   and 32, reset + 50 seeded steps, each fetching obs, reward and info
+   (env steps/s, peak memory; launch counts prove that every substep ran
+   each batched kernel once for the whole batch: 950 each and 50 of
+   K7-fwd-b, whatever B); B = 8 without jitter: every env equals env 0, and
+   env 0 equals `make("Move-v1")` after 5 steps;
+14. device times: each kernel and plain version under torch.profiler, the
+   device's busy share in an rgb env step and a 1-spp frame, and in 5
+   batched env steps at B = 1 and B = 32 with the device operations per
+   batched substep (B = 32 within 1.2x of B = 1: no per-env loop), after
    everything else (an active profiler slows every later launch).
 Prints a JSON line of the kernels (`ms` and `plain_ms`: device time per call
 from torch.profiler; for a backward kernel, the plain version's time is that
@@ -168,6 +181,12 @@ PROBE_NORMAL = ((-0.06347261369228363, 0.9979826807975769, -0.001397387823089957
 PROBE_COLOR = ((0.49804688, 0.0, 0.0),) * 3 + ((0.7, 0.7, 0.7),) * 3 + (
     (0.105000004, 0.175, 0.24499999),) * 2
 PROBE_TOL = {"closest": 1e-3, "normal": 1e-2, "color": 1e-2}
+VEC_B = 8             # envs in the batched kernel checks and the parity check
+VEC_BATCHES = (1, 8, 32)
+VEC_STEPS = 50        # batched env steps per B
+VEC_PARITY_STEPS = 5
+VEC_PROFILE_STEPS = 5
+VEC_LAUNCH_RATIO = 1.2  # device operations per substep, B = 32 over B = 1
 RENDER_STEPS = 5      # Move-v1 steps before the frame
 RGB_STEPS = 50        # rgb-observation env steps
 SOLVE_ACTION_T = 5    # solve_action's episode length; 2 Adam iterations
@@ -185,6 +204,10 @@ PEAK_F32_S = 67e12
 OPS_PER_ITEM = {"stress_affine": 1500, "stress_affine_bwd": 4000, "p2g": 900,
                 "p2g_bwd": 1800, "grid_mass": 150, "grid_mass_bwd": 300, "g2p": 700,
                 "g2p_bwd": 1400, "grid_op": 300, "grid_op_bwd": 1500, "voxelize": 25}
+# the batched kernels do B times the work of the single-env ones
+BATCHED = {"p2g_batched": "p2g", "grid_mass_batched": "grid_mass", "g2p_batched": "g2p",
+           "grid_op_batched": "grid_op"}
+OPS_PER_ITEM.update({k: OPS_PER_ITEM[v] for k, v in BATCHED.items()})
 
 REPLACES = {
     "stress_affine": "plasticinelab_tpu/engine/pallas_stress.py:201",
@@ -198,6 +221,10 @@ REPLACES = {
     "grid_op_bwd": "plasticinelab_tpu/engine/pallas_gridop.py:97",
     "g2p_bwd": "plasticinelab_tpu/engine/pallas_local.py:388",
     "voxelize": "plasticinelab_tpu/engine/renderer/pallas_voxelize.py:69",
+    "p2g_batched": "plasticinelab_tpu/engine/pallas_local.py:767",
+    "grid_mass_batched": "plasticinelab_tpu/engine/pallas_local.py:892",
+    "grid_op_batched": "plasticinelab_tpu/engine/pallas_gridop.py:234",
+    "g2p_batched": "plasticinelab_tpu/engine/pallas_local.py:793",
 }
 SOURCES = {
     "stress_affine": "plasticinelab_tpu_torch/csrc/stress.cu",
@@ -212,6 +239,7 @@ SOURCES = {
     "g2p_bwd": "plasticinelab_tpu_torch/csrc/transfer.cu",
     "voxelize": "plasticinelab_tpu_torch/csrc/voxelize.cu",
 }
+SOURCES.update({k: SOURCES[v] for k, v in BATCHED.items()})
 SHAPE_PARAMS = {
     "Sphere": dict(radius=0.06),
     "Capsule": dict(h=0.1, r=0.04),
@@ -911,6 +939,221 @@ def phase_render():
     return out
 
 
+def per_env(name, batched, singles, tol=None):
+    """Each env b of a batched call's outputs (tuple, leading B) against
+    singles[b], the outputs of a B = 1 launch of the same kernel on env b:
+    bit for bit (tol None), or within tol of the largest value."""
+    import torch
+
+    worst = 0.0
+    for b, single in enumerate(singles):
+        for g, w in zip(batched, as_tuple(single)):
+            if tol is None:
+                if not torch.equal(g[b], w):
+                    raise AssertionError(f"{name}: env {b} differs from its B = 1 launch")
+                continue
+            worst = max(worst, float((g[b].double() - w.double()).abs().max())
+                        / (float(w.abs().max()) or 1.0))
+    if tol is not None and not worst <= tol:
+        raise AssertionError(f"{name}: an env differs from its B = 1 launch by {worst:.3e}")
+    log(f"  {name:28s} per env vs {len(singles)} B = 1 launches: "
+        + ("bit for bit" if tol is None else f"max rel {worst:.3e} (tol {tol:.0e})"))
+
+
+def phase_vec_kernels():
+    """The batched kernels at Move-v1 shapes for VEC_B and for the largest
+    of VEC_BATCHES envs, each env's cloud moved by its own noise, each env
+    with its own poses and softness; the B = VEC_B run also against B = 1
+    launches. The line's entries are the largest B's."""
+    import torch
+
+    from plasticinelab_tpu_torch.engine import cuda_gridop, cuda_transfer
+
+    scene, x_np = move_scene()
+    sim = scene.simulator
+    n, G, k = len(x_np), sim.n_grid, len(scene.primitives)
+    center = x_np.mean(axis=0)
+    results = {}
+
+    def run(B):
+        """One batch size; its calls keep their own inputs for the device times."""
+        log(f"phase vec kernels: Move-v1 shapes, B={B} envs of n={n} particles, G={G} grid, "
+            f"seed {SEED + 5}")
+        rng = np.random.default_rng(SEED + 5)
+        x = tensor(np.clip(x_np + rng.uniform(-0.01, 0.01, (B, n, 3)), 0.0, 0.95))
+        v = tensor(rng.standard_normal((B, n, 3)) * 0.5)
+        C = tensor(rng.standard_normal((B, n, 3, 3)) * 2.0)
+        aff = tensor(rng.standard_normal((B, n, 3, 3)) * 0.3)
+        grid_v = tensor(rng.standard_normal((B, G ** 3, 3)) * 0.5)
+        # the grid update on realistic grids: P2G of the clouds, O(1) velocities
+        grid4 = cuda_transfer.p2g_plain_batched(scene, x, v, sim.p_mass * C)
+        poses = [test_poses(k, 300 + b, center) for b in range(B)]
+        pf = tuple(torch.stack([p[0][j] for p in poses]) for j in range(3))
+        pf1 = tuple(torch.stack([p[1][j] for p in poses]) for j in range(3))
+        softness = tensor(np.where(np.arange(B) % 2, 333.0, 666.0))
+        env = lambda tree, b: tuple(t[b] for t in tree)  # noqa: E731
+        calls = {
+            "p2g_batched": (
+                lambda: (cuda_transfer.p2g_batched(scene, x, v, aff),),
+                lambda: (cuda_transfer.p2g_plain_batched(scene, x, v, aff),), (x, v, aff), B * n,
+                lambda b: cuda_transfer.p2g(scene, x[b], v[b], aff[b]), TOL["p2g"]),
+            "grid_mass_batched": (
+                lambda: (cuda_transfer.grid_mass_batched(scene, x),),
+                lambda: (cuda_transfer.grid_mass_plain_batched(scene, x),), (x,), B * n,
+                lambda b: cuda_transfer.grid_mass(scene, x[b]), TOL["grid_mass"]),
+            "g2p_batched": (
+                lambda: cuda_transfer.g2p_batched(scene, x, grid_v),
+                lambda: cuda_transfer.g2p_plain_batched(scene, x, grid_v), (x, grid_v), B * n,
+                lambda b: cuda_transfer.g2p(scene, x[b], grid_v[b]), None),
+            "grid_op_batched": (
+                lambda: (cuda_gridop.grid_op_batched(scene, grid4, pf, pf1, softness),),
+                lambda: (cuda_gridop.grid_op_plain_batched(scene, grid4, pf, pf1, softness),),
+                (grid4, *pf, *pf1, softness), int((grid4[..., 3] > 1e-12).sum()),
+                lambda b: cuda_gridop.grid_op(scene, grid4[b], env(pf, b), env(pf1, b),
+                                              float(softness[b])), None),
+        }
+        for name, (kern, plain, inputs, items, single, env_tol) in calls.items():
+            base = BATCHED[name]
+            got = as_tuple(kern())
+            err = compare(f"{name} [B={B}]", got, as_tuple(plain()), TOL[base],
+                          FLIP_BUDGET * B if base == "grid_op" else 0)
+            if B == VEC_B:
+                per_env(name, got, [single(b) for b in range(B)], env_tol)
+            k_wall, p_wall = wall_time(kern), wall_time(plain)
+            b_ms, b_by = bound(name, list(inputs) + list(got), items)
+            key = name if B == VEC_BATCHES[-1] else f"{name}[B={B}]"
+            results[key] = dict(max_abs_err=err, ms=k_wall, plain_ms=p_wall, bound_ms=b_ms,
+                                bound_by=b_by, library_ms=None, calls=(kern, plain))
+            log(f"  {key:28s} wall ms/call: kernel {k_wall:.4f}  plain {p_wall:.4f}  "
+                f"bound {b_ms:.5f} ({b_by})")
+
+    for B in (VEC_B, VEC_BATCHES[-1]):
+        run(B)
+    return results
+
+
+def phase_vec():
+    """VecPlasticineEnv("Move-v1") for each B of VEC_BATCHES: reset and
+    VEC_STEPS seeded steps, each fetching obs, reward and info to the host
+    (the step's one sync); then the parity checks at B = VEC_B."""
+    import torch
+
+    from plasticinelab_tpu_torch.engine import cuda_gridop, cuda_stress, cuda_transfer
+    from plasticinelab_tpu_torch.envs import make
+    from plasticinelab_tpu_torch.parallel import VecPlasticineEnv
+
+    mods = (cuda_stress, cuda_transfer, cuda_gridop)
+    out = {"envs": {}, "sps": {}}
+    for B in VEC_BATCHES:
+        t0 = time.perf_counter()
+        ve = VecPlasticineEnv("Move-v1", batch=B, seed=SEED, horizon=VEC_STEPS, device=DEVICE)
+        ve.reset()
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+        sub = ve.scene.simulator.substeps
+        actions = np.random.default_rng(SEED).uniform(-1, 1, (VEC_STEPS, B, ve.action_dim))
+        for mod in mods:
+            mod.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        stamps, enqueue = [], []
+        for a in actions:
+            t0 = time.perf_counter()
+            obs, reward, done, info = ve.step(a)
+            enqueue.append(time.perf_counter() - t0)  # the host's launches
+            host = torch.cat([obs.reshape(-1), reward, info["loss"], info["iou"],
+                              info["incremental_iou"]]).cpu().numpy()
+            stamps.append(time.perf_counter())
+            if not np.isfinite(host).all():
+                raise AssertionError(f"B={B}: non-finite observation, reward or info")
+        launches = {k: v for mod in mods for k, v in mod.launches.items()}
+        peak = torch.cuda.max_memory_allocated()
+        log(f"phase vec: VecPlasticineEnv('Move-v1', batch={B}, device='cuda'): set-up "
+            f"{t_setup:.3f} s, {VEC_STEPS} steps; launches {launches}")
+        expected = {"stress_affine": VEC_STEPS * sub, "p2g_batched": VEC_STEPS * sub,
+                    "grid_op_batched": VEC_STEPS * sub, "g2p_batched": VEC_STEPS * sub,
+                    "grid_mass_batched": VEC_STEPS}
+        expected.update({k: 0 for k in ("p2g", "grid_mass", "g2p", "grid_op")})
+        for key, want in expected.items():
+            if launches[key] != want:
+                raise AssertionError(f"B={B}: {key} ran {launches[key]} times, expected {want}")
+        if obs.shape != (B, ve.obs_dim) or not bool(done.all()):
+            raise AssertionError(f"B={B}: observation {tuple(obs.shape)}, done {done.tolist()}")
+        sps = B * (VEC_STEPS - 1) / (stamps[-1] - stamps[0])
+        step_ms = 1e3 * (stamps[-1] - stamps[0]) / (VEC_STEPS - 1)
+        enq_ms = 1e3 * float(np.mean(enqueue[1:]))
+        log(f"  env steps/s {sps:.3f} (B x steps 2..{VEC_STEPS} over host seconds), batched "
+            f"step {step_ms:.3f} ms, of which the host's launches {enq_ms:.3f} ms and the wait "
+            f"for the device and the fetch {step_ms - enq_ms:.3f} ms; peak device memory {(peak - base) / 2**30:.4f} GiB above "
+            f"{base / 2**30:.3f} GiB at start; mean reward "
+            f"{float(reward.mean()):.6g}, incremental_iou {float(info['incremental_iou'].mean()):.6g}")
+        out["envs"][B], out["sps"][B], out["launches"] = ve, sps, launches
+
+    # parity: B = VEC_B envs without jitter under the same actions, and the
+    # single env
+    ve = VecPlasticineEnv("Move-v1", batch=VEC_B, jitter=0.0, device=DEVICE)
+    env = make("Move-v1", device=DEVICE)
+    ve.reset()
+    env.reset()
+    for a in np.random.default_rng(SEED + 6).uniform(-1, 1, (VEC_PARITY_STEPS, ve.action_dim)):
+        _, _, _, info = ve.step(np.tile(a, (VEC_B, 1)))
+        _, _, _, _, single = env.step(a)
+    log(f"phase vec parity: B={VEC_B} without jitter, {VEC_PARITY_STEPS} steps of the same "
+        f"actions; and make('Move-v1') with them")
+    for name in ("x", "v", "C", "F"):
+        t = getattr(ve.states, name).double()
+        diff, scale = float((t - t[:1]).abs().max()), float(t[0].abs().max())
+        log(f"  every env vs env 0: {name} max_abs {diff:.3e} rel {diff / scale:.3e} "
+            f"(bound {STEP_TOL[name]:.0e})")
+        if not diff <= STEP_TOL[name] * scale:
+            raise AssertionError(f"batched envs differ in {name} by {diff}")
+    x1 = env.unwrapped.taichi_env.state.x.double()
+    diff, scale = float((ve.states.x[0].double() - x1).abs().max()), float(x1.abs().max())
+    rel = abs(float(info["loss"][0]) - single["loss"]) / abs(single["loss"])
+    log(f"  env 0 vs the single env: x max_abs {diff:.3e} rel {diff / scale:.3e} (bound "
+        f"{STEP_TOL['x']:.0e}); loss {float(info['loss'][0]):.9g} vs {single['loss']:.9g} rel "
+        f"{rel:.3e} (bound {REF_TOL:.0e})")
+    if not (diff <= STEP_TOL["x"] * scale and rel <= REF_TOL):
+        raise AssertionError("the batched env's env 0 differs from the single env")
+    return out
+
+
+def vec_profile(ve, steps):
+    """Device busy ms, wall ms, busy share and device operations (kernels,
+    memsets, copies) per call of `steps` batched env steps of zero actions,
+    and the runtime's launch, copy and synchronise calls torch.profiler
+    saw."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    a = np.zeros((ve.batch, ve.action_dim))
+
+    def run():
+        for _ in range(steps):
+            ve.step(a)
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    events = prof.key_averages()
+    # device-side events only: with CPU activity on, each CPU op also
+    # carries the device time of the kernels it launched
+    dev = [e for e in events if e.device_type != DeviceType.CPU]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    ops = sum(e.count for e in dev)
+    calls = {name: sum(e.count for e in events if e.key.startswith(prefixes))
+             for name, prefixes in (("launch", ("cudaLaunchKernel", "cuLaunchKernel")),
+                                    ("copy", ("cudaMemcpy",)),
+                                    ("sync", ("cudaStreamSynchronize",
+                                              "cudaDeviceSynchronize")))}
+    return busy, wall, busy / wall, ops, calls
+
+
 def busy_share(fn):
     """(device busy ms, wall ms, busy share) of fn(): the device time of the
     kernels, memsets and copies it ran (torch.profiler) over its own
@@ -963,6 +1206,9 @@ def main():
     phase_render_reference()
     render = phase_render()
     launches["voxelize"] = render["voxelize_launches"]
+    results.update(phase_vec_kernels())
+    vec = phase_vec()
+    launches.update({k: vec["launches"][k] for k in BATCHED})
     # after the slice: an active profiler slows every later launch
     log("phase device times (torch.profiler, ms per call)")
     for k, r in results.items():
@@ -980,6 +1226,22 @@ def main():
     busy, wall, share = busy_share(lambda: render["env"].unwrapped.taichi_env.render(spp=1))
     log(f"  512^2 frame at 1 spp: device busy {busy} ms of {wall:.3f} ms wall, busy share "
         f"{share}")
+    per_substep = {}
+    for B in (VEC_BATCHES[0], VEC_BATCHES[-1]):
+        ve = vec["envs"][B]
+        busy, wall, share, ops, calls = vec_profile(ve, VEC_PROFILE_STEPS)
+        n_sub = VEC_PROFILE_STEPS * ve.scene.simulator.substeps
+        per_substep[B] = ops / n_sub
+        log(f"  {VEC_PROFILE_STEPS} batched env steps, B={B}: device busy {busy:.3f} ms of "
+            f"{wall:.3f} ms wall, busy share {share:.4f}; per substep: device operations "
+            f"{ops / n_sub:.2f}, runtime calls "
+            + ", ".join(f"{k} {v / n_sub:.2f}" for k, v in calls.items())
+            + f"; env steps/s {vec['sps'][B]:.3f} (unprofiled run)")
+    ratio = per_substep[VEC_BATCHES[-1]] / per_substep[VEC_BATCHES[0]]
+    log(f"  device operations per substep, B={VEC_BATCHES[-1]} over B={VEC_BATCHES[0]}: "
+        f"{ratio:.3f} (bound {VEC_LAUNCH_RATIO})")
+    if not (per_substep[VEC_BATCHES[0]] > 0 and ratio <= VEC_LAUNCH_RATIO):
+        raise AssertionError("the batched step's launches grow with B")
 
     kernels = [dict(name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
                     launches=launches[k], **results[k]) for k in REPLACES]

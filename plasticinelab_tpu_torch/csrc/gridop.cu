@@ -25,6 +25,12 @@
 // gap_f, pos_f1 3, rot_f1 4, gap_f1]; out (G^3, 3). The pass reads 16 B and
 // writes 12 B per cell, a few MB that stay in L2; the cost is the SDF,
 // normal and contact arithmetic per primitive, in a thin shell around each.
+//
+// The forward takes B envs: one thread per (env, cell) of grid4 (B, G^3, 4),
+// each env with its own poses row block (B, k, 16) and its own softness from
+// a (B,) device tensor. It also replaces the batched grid of the same TPU
+// kernel (pallas_gridop.py:205 grid_op_fns_batched, K8-fwd-b :234); one env
+// is B = 1. The backward takes one env and its softness as a scalar.
 #include "common.cuh"
 
 #define PLB_MAX_PRIMS 8
@@ -605,32 +611,40 @@ __device__ __forceinline__ void wall_step_bwd(int d, const CellCtx& x, int G, fl
   }
 }
 
-// The scalar arguments of the grid kernels.
+// The scalar arguments of the grid kernels that all envs share.
 struct GridConsts {
   int G;
-  float dx, dt, softness, g30[3], ground_friction, vmax;
+  float dx, dt, g30[3], ground_friction, vmax;
 };
 
+// idx runs over (env, cell) of B envs' grids; grid4 and out are indexed by
+// idx itself, since the envs' grids are contiguous.
 __global__ void grid_op_kernel(const float* __restrict__ grid4, const float* __restrict__ poses,
-                               float* __restrict__ out, PrimTable table, GridConsts k) {
+                               const float* __restrict__ softness, float* __restrict__ out,
+                               PrimTable table, GridConsts k, int B) {
   const long long GG = k.G;
-  const long long cell = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (cell >= GG * GG * GG) return;
-  const float m = grid4[cell * 4 + 3];
+  const long long cells = GG * GG * GG;
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= cells * B) return;
+  const long long env = idx / cells;
+  const long long cell = idx - env * cells;
+  const float m = grid4[idx * 4 + 3];
   if (!(m > 1e-12f)) {
     // cells with no mass keep zero velocity
-    out[cell * 3 + 0] = 0.0f;
-    out[cell * 3 + 1] = 0.0f;
-    out[cell * 3 + 2] = 0.0f;
+    out[idx * 3 + 0] = 0.0f;
+    out[idx * 3 + 1] = 0.0f;
+    out[idx * 3 + 2] = 0.0f;
     return;
   }
   const CellCtx x = cell_ctx(cell, k.G, k.dx);
   const float inv_m = 1.0f / m;
-  V3 vv = {grid4[cell * 4 + 0] * inv_m + k.g30[0], grid4[cell * 4 + 1] * inv_m + k.g30[1],
-           grid4[cell * 4 + 2] * inv_m + k.g30[2]};
+  V3 vv = {grid4[idx * 4 + 0] * inv_m + k.g30[0], grid4[idx * 4 + 1] * inv_m + k.g30[1],
+           grid4[idx * 4 + 2] * inv_m + k.g30[2]};
   const float inv_dt = 1.0f / k.dt;
+  const float soft = softness[env];
+  const float* env_poses = poses + env * table.k * 16;
   for (int i = 0; i < table.k; ++i)
-    collide(prim_of(table, i), prim_pose(poses + i * 16), k.softness, inv_dt, x.gp, vv);
+    collide(prim_of(table, i), prim_pose(env_poses + i * 16), soft, inv_dt, x.gp, vv);
   float v[3] = {vv.x, vv.y, vv.z};
 #pragma unroll
   for (int d = 0; d < 3; ++d) wall_step(d, x, k.G, k.ground_friction, v);
@@ -638,9 +652,9 @@ __global__ void grid_op_kernel(const float* __restrict__ grid4, const float* __r
 #pragma unroll
     for (int d = 0; d < 3; ++d) v[d] = jmin(jmax(v[d], -k.vmax), k.vmax);
   }
-  out[cell * 3 + 0] = v[0];
-  out[cell * 3 + 1] = v[1];
-  out[cell * 3 + 2] = v[2];
+  out[idx * 3 + 0] = v[0];
+  out[idx * 3 + 1] = v[1];
+  out[idx * 3 + 2] = v[2];
 }
 
 // The adjoint of one cell: recomputes its forward, keeping the velocity
@@ -653,7 +667,7 @@ __device__ __forceinline__ void cell_bwd(const float* __restrict__ grid4,
                                          const float* __restrict__ poses,
                                          const float* __restrict__ ct, float* __restrict__ dgrid4,
                                          const PrimTable& table, const GridConsts& k,
-                                         long long cell, Sink& sink) {
+                                         float softness, long long cell, Sink& sink) {
   const long long GG = k.G;
   const bool in_grid = cell < GG * GG * GG;
   const float m = in_grid ? grid4[cell * 4 + 3] : 0.0f;
@@ -671,7 +685,7 @@ __device__ __forceinline__ void cell_bwd(const float* __restrict__ grid4,
       vin[i][0] = vv.x;
       vin[i][1] = vv.y;
       vin[i][2] = vv.z;
-      collide(prim_of(table, i), prim_pose(poses + i * 16), k.softness, inv_dt, x.gp, vv);
+      collide(prim_of(table, i), prim_pose(poses + i * 16), softness, inv_dt, x.gp, vv);
     }
     float vwall[3][3];
     float v[3] = {vv.x, vv.y, vv.z};
@@ -698,7 +712,7 @@ __device__ __forceinline__ void cell_bwd(const float* __restrict__ grid4,
     bool hit = false;
     if (active) {
       V3 gv = {g[0], g[1], g[2]};
-      hit = collide_bwd(prim_of(table, i), prim_pose(poses + i * 16), k.softness, inv_dt, x.gp,
+      hit = collide_bwd(prim_of(table, i), prim_pose(poses + i * 16), softness, inv_dt, x.gp,
                         V3{vin[i][0], vin[i][1], vin[i][2]}, gv, pg);
       g[0] = gv.x;
       g[1] = gv.y;
@@ -765,11 +779,11 @@ struct BlockSink {
 __global__ void grid_op_bwd_kernel(const float* __restrict__ grid4,
                                    const float* __restrict__ poses, const float* __restrict__ ct,
                                    float* __restrict__ dgrid4, float* __restrict__ partials,
-                                   PrimTable table, GridConsts k) {
+                                   PrimTable table, GridConsts k, float softness) {
   __shared__ float smem[plb::kThreads / 32][kPG];
   BlockSink sink{partials, smem, table.k};
   const long long cell = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  cell_bwd(grid4, poses, ct, dgrid4, table, k, cell, sink);
+  cell_bwd(grid4, poses, ct, dgrid4, table, k, softness, cell, sink);
 }
 
 // One primitive's (16,) pose cotangent row from its summed kPG components:
@@ -821,17 +835,21 @@ __global__ void grid_op_pose_reduce_kernel(const float* __restrict__ partials,
 
 }  // namespace
 
-extern "C" int plb_grid_op(const float* grid4, const float* poses, float* grid_v, PrimTable table,
-                           int G, float dx, float dt, float softness, float g30x, float g30y,
-                           float g30z, float ground_friction, float vmax, int device, void* stream) {
+// B envs: grid4 (B, G^3, 4), poses (B, k, 16), softness (B,) on the device,
+// grid_v (B, G^3, 3); one env is B = 1.
+extern "C" int plb_grid_op(const float* grid4, const float* poses, const float* softness,
+                           float* grid_v, PrimTable table, int B, int G, float dx, float dt,
+                           float g30x, float g30y, float g30z, float ground_friction, float vmax,
+                           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (table.k < 0 || table.k > PLB_MAX_PRIMS) return static_cast<int>(cudaErrorInvalidValue);
-  const long long cells = static_cast<long long>(G) * G * G;
-  const GridConsts k = {G, dx, dt, softness, {g30x, g30y, g30z}, ground_friction, vmax};
-  if (cells > 0) {
-    grid_op_kernel<<<plb::blocks_for(cells), plb::kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(grid4, poses, grid_v, table, k);
+  const long long total = static_cast<long long>(G) * G * G * B;
+  const GridConsts k = {G, dx, dt, {g30x, g30y, g30z}, ground_friction, vmax};
+  if (total > 0) {
+    grid_op_kernel<<<plb::blocks_for(total), plb::kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(grid4, poses, softness, grid_v, table,
+                                                          k, B);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -847,11 +865,11 @@ extern "C" int plb_grid_op_bwd(const float* grid4, const float* poses, const flo
   if (table.k < 0 || table.k > PLB_MAX_PRIMS) return static_cast<int>(cudaErrorInvalidValue);
   const long long cells = static_cast<long long>(G) * G * G;
   if (cells <= 0) return static_cast<int>(cudaGetLastError());
-  const GridConsts k = {G, dx, dt, softness, {g30x, g30y, g30z}, ground_friction, vmax};
+  const GridConsts k = {G, dx, dt, {g30x, g30y, g30z}, ground_friction, vmax};
   const unsigned int nblocks = plb::blocks_for(cells);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   grid_op_bwd_kernel<<<nblocks, plb::kThreads, 0, s>>>(grid4, poses, ct, dgrid4, partials, table,
-                                                       k);
+                                                       k, softness);
   err = cudaGetLastError();
   if (err != cudaSuccess || table.k == 0) return static_cast<int>(err);
   grid_op_pose_reduce_kernel<<<table.k, plb::kThreads, 0, s>>>(partials, poses, dposes,

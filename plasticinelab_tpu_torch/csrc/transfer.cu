@@ -23,6 +23,13 @@
 // crop edge D = G and offset 0: base = floor(px - 0.5) clamped to
 // [0, G-3], weights from the unclamped fraction, dpos = cell - px in grid
 // units. Flat cell index (i * G + j) * G + k, in 64 bits.
+//
+// The forward kernels (p2g_kernel, g2p_kernel) take a batch of B envs of n
+// particles each, env-major: particle p belongs to env p / n and scatters
+// into, or gathers from, that env's grid at grid + env G^3 C. They replace
+// the batched grids of the same TPU kernels too (pallas_local.py:725
+// transfer_fns_batched, K3-b :767 and K5-b :793; :865 mass_fns_batched,
+// K7-fwd-b :892). One env is B = 1. The backward kernels take one env.
 #include "common.cuh"
 
 namespace {
@@ -58,12 +65,19 @@ __device__ __forceinline__ Stencil make_stencil(const float* __restrict__ x, lon
   return s;
 }
 
+// grid + env G^3 channels: the grid of the env that particle p belongs to
+__device__ __forceinline__ long long env_grid(long long p, long long n_env, int G, int channels) {
+  const long long GG = G;
+  return (p / n_env) * GG * GG * GG * channels;
+}
+
 template <bool MASS_ONLY>
 __global__ void p2g_kernel(const float* __restrict__ x, const float* __restrict__ v,
                            const float* __restrict__ aff, float* __restrict__ grid, long long n,
-                           int G, float inv_dx, float dx, float p_mass) {
+                           long long total, int G, float inv_dx, float dx, float p_mass) {
   const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= n) return;
+  if (p >= total) return;
+  grid += env_grid(p, n, G, MASS_ONLY ? 1 : 4);
   const Stencil s = make_stencil(x, p, G, inv_dx);
   float vp[3] = {0.0f, 0.0f, 0.0f}, A[3][3] = {};
   if (!MASS_ONLY) {
@@ -100,10 +114,11 @@ __global__ void p2g_kernel(const float* __restrict__ x, const float* __restrict_
 
 __global__ void g2p_kernel(const float* __restrict__ x, const float* __restrict__ grid_v,
                            float* __restrict__ new_v, float* __restrict__ new_C,
-                           float* __restrict__ new_x, long long n, int G, float inv_dx, float dt,
-                           float x_hi) {
+                           float* __restrict__ new_x, long long n, long long total, int G,
+                           float inv_dx, float dt, float x_hi) {
   const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= n) return;
+  if (p >= total) return;
+  grid_v += env_grid(p, n, G, 3);
   const Stencil s = make_stencil(x, p, G, inv_dx);
   float vel[3] = {0.0f, 0.0f, 0.0f}, M[3][3] = {};
   const long long GG = G;
@@ -271,37 +286,44 @@ __global__ void g2p_bwd_kernel(const float* __restrict__ x, const float* __restr
 
 }  // namespace
 
+// The forward entry points take B envs of n particles each (x (B, n, 3),
+// grids (B, G^3, C)); one env is B = 1.
 extern "C" int plb_p2g(const float* x, const float* v, const float* affine, float* grid4,
-                       long long n, int G, float inv_dx, float dx, float p_mass, int device,
-                       void* stream) {
+                       long long n, int B, int G, float inv_dx, float dx, float p_mass,
+                       int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
-    p2g_kernel<false><<<plb::blocks_for(n), plb::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        x, v, affine, grid4, n, G, inv_dx, dx, p_mass);
+  const long long total = n * B;
+  if (total > 0) {
+    p2g_kernel<false><<<plb::blocks_for(total), plb::kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(x, v, affine, grid4, n, total, G,
+                                                             inv_dx, dx, p_mass);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int plb_grid_mass(const float* x, float* grid_m, long long n, int G, float inv_dx,
-                             float p_mass, int device, void* stream) {
+extern "C" int plb_grid_mass(const float* x, float* grid_m, long long n, int B, int G,
+                             float inv_dx, float p_mass, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
-    p2g_kernel<true><<<plb::blocks_for(n), plb::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        x, nullptr, nullptr, grid_m, n, G, inv_dx, 0.0f, p_mass);
+  const long long total = n * B;
+  if (total > 0) {
+    p2g_kernel<true><<<plb::blocks_for(total), plb::kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(x, nullptr, nullptr, grid_m, n, total,
+                                                            G, inv_dx, 0.0f, p_mass);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int plb_g2p(const float* x, const float* grid_v, float* new_v, float* new_C,
-                       float* new_x, long long n, int G, float inv_dx, float dt, float x_hi,
-                       int device, void* stream) {
+                       float* new_x, long long n, int B, int G, float inv_dx, float dt,
+                       float x_hi, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
-    g2p_kernel<<<plb::blocks_for(n), plb::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        x, grid_v, new_v, new_C, new_x, n, G, inv_dx, dt, x_hi);
+  const long long total = n * B;
+  if (total > 0) {
+    g2p_kernel<<<plb::blocks_for(total), plb::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        x, grid_v, new_v, new_C, new_x, n, total, G, inv_dx, dt, x_hi);
   }
   return static_cast<int>(cudaGetLastError());
 }

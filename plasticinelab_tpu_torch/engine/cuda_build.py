@@ -54,15 +54,17 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # C, F, newF, affine, n, dt, mu, lam, yield_stress, coeff, p_mass, device, stream
     "plb_stress_affine": [_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _I, _P],
-    # x, v, affine, grid4, n, G, inv_dx, dx, p_mass, device, stream
-    "plb_p2g": [_P, _P, _P, _P, _L, _I, _F, _F, _F, _I, _P],
-    # x, grid_m, n, G, inv_dx, p_mass, device, stream
-    "plb_grid_mass": [_P, _P, _L, _I, _F, _F, _I, _P],
-    # x, grid_v, new_v, new_C, new_x, n, G, inv_dx, dt, x_hi, device, stream
-    "plb_g2p": [_P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _I, _P],
-    # grid4, poses, grid_v, table, G, dx, dt, softness, gravity xyz,
+    # the forward transfers and the grid update take B envs (n particles
+    # each); one env is B = 1
+    # x, v, affine, grid4, n, B, G, inv_dx, dx, p_mass, device, stream
+    "plb_p2g": [_P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _I, _P],
+    # x, grid_m, n, B, G, inv_dx, p_mass, device, stream
+    "plb_grid_mass": [_P, _P, _L, _I, _I, _F, _F, _I, _P],
+    # x, grid_v, new_v, new_C, new_x, n, B, G, inv_dx, dt, x_hi, device, stream
+    "plb_g2p": [_P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _I, _P],
+    # grid4, poses, softness (B,), grid_v, table, B, G, dx, dt, gravity xyz,
     # ground_friction, vmax, device, stream
-    "plb_grid_op": [_P, _P, _P, PrimTable, _I, _F, _F, _F, _F, _F, _F, _F, _F,
+    "plb_grid_op": [_P, _P, _P, _P, PrimTable, _I, _I, _F, _F, _F, _F, _F, _F, _F,
                     _I, _P],
     # C, F, gNewF, gAffine, gC, gF, n, dt, mu, lam, yield_stress, coeff,
     # p_mass, gap_mode, gap_eps, device, stream
@@ -177,6 +179,16 @@ def require(t: torch.Tensor, name: str, shape, device: torch.device) -> None:
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if t.device != device:
         raise ValueError(f"{name}: expected device {device}, got {t.device}")
+
+
+def require_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """The batched wrappers are forward only: raise rather than let autograd
+    differentiate their plain versions."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} is forward only: the batched gradient (build_batched_rollout_grad "
+            "with K4-b, K6-b, K7-bwd-b and K8-bwd-b) is ROADMAP item A12's next part, "
+            "not ported yet")
 
 
 def require_kernel_input(t: torch.Tensor, name: str) -> None:

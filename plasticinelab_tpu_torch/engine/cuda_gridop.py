@@ -27,6 +27,13 @@ pose_f1 and on through the forward kinematics to the actions. The pose
 cotangents are summed over cells per block, then over blocks in a fixed
 order by a second small kernel: deterministic, no contended atomics.
 
+The forward kernel takes a batch of envs: one thread per (env, cell) of a
+(B, G^3, 4) grid, each env with its own (k, 16) poses and its own softness
+from a (B,) device tensor. So it also replaces the batched grid of K8
+forward (`pallas_gridop.py:205` `grid_op_fns_batched`, `:234`):
+`grid_op_batched` launches it over B envs (forward only), `grid_op` with
+B = 1. The backward takes one env.
+
 The wrapper takes the plain version only for a CPU tensor; for a CUDA
 tensor it launches the kernel (float32, contiguous) or raises, and so does
 the backward. `launches` counts kernel launches.
@@ -41,7 +48,7 @@ from ..config.spec import SceneSpec
 from . import cuda_build as cb
 from . import primitives as prim
 
-launches = {"grid_op": 0, "grid_op_bwd": 0}
+launches = {"grid_op": 0, "grid_op_bwd": 0, "grid_op_batched": 0}
 
 SHAPE_IDS = {"Sphere": 0, "Capsule": 1, "RollingPin": 1, "Chopsticks": 2,
              "Cylinder": 3, "Torus": 4, "Box": 5}
@@ -109,6 +116,15 @@ def grid_op_plain(scene: SceneSpec, grid4, pose_f, pose_f1, softness):
     return torch.where(mask[:, None], v, torch.zeros_like(v))
 
 
+def grid_op_plain_batched(scene: SceneSpec, grid4, pose_f, pose_f1, softness):
+    """`grid_op_plain` of B envs: grid4 (B, G^3, 4), poses with a leading B,
+    softness (B,) -> (B, G^3, 3), env by env."""
+    return torch.stack([
+        grid_op_plain(scene, grid4[b], tuple(t[b] for t in pose_f),
+                      tuple(t[b] for t in pose_f1), s)
+        for b, s in enumerate(softness.tolist())])
+
+
 @functools.lru_cache(maxsize=None)
 def prim_table(primitives) -> cb.PrimTable:
     """Static parameters of a scene's primitives, in csrc/gridop.cu order."""
@@ -126,36 +142,50 @@ def prim_table(primitives) -> cb.PrimTable:
 
 def pack_poses(pose_f, pose_f1) -> torch.Tensor:
     """(k, 16) rows [pos_f 3, rot_f 4, gap_f, pos_f1 3, rot_f1 4, gap_f1]
-    (the layout of `pallas_gridop._unpack_poses`, gaps inlined)."""
+    (the layout of `pallas_gridop._unpack_poses`, gaps inlined); (B, k, 16)
+    for poses with a leading B."""
     (p0, r0, g0), (p1, r1, g1) = pose_f, pose_f1
-    return torch.cat([p0, r0, g0[:, None], p1, r1, g1[:, None]], dim=1)
+    return torch.cat([p0, r0, g0[..., None], p1, r1, g1[..., None]], dim=-1)
 
 
-def _consts(scene: SceneSpec, softness: float):
-    """Scalar arguments after the table: G, dx, dt, softness, gravity x 30 dt
-    (3), ground friction, velocity clamp (0 = none)."""
+def _consts(scene: SceneSpec):
+    """Scalar arguments after the table that all envs share: G, dx, dt,
+    gravity x 30 dt (3), ground friction, velocity clamp (0 = none)."""
     sim = scene.simulator
     g30 = [sim.dt * g * 30.0 for g in sim.gravity]
     vmax = sim.grid_v_clamp * sim.dx / sim.dt if sim.grid_v_clamp > 0 else 0.0
-    return (sim.n_grid, sim.dx, sim.dt, float(softness), *g30, sim.ground_friction, vmax)
+    return (sim.n_grid, sim.dx, sim.dt, *g30, sim.ground_friction, vmax)
 
 
-def _check_packed(scene: SceneSpec, grid4, poses):
+@functools.lru_cache(maxsize=None)
+def _softness_tensor(value: float, device: torch.device) -> torch.Tensor:
+    """The (1,) softness of one env on the device, made once per value."""
+    return torch.full((1,), value, dtype=torch.float32, device=device)
+
+
+def _check_packed(scene: SceneSpec, grid4, poses, lead=()):
     G, k = scene.simulator.n_grid, len(scene.primitives)
-    cb.require(grid4, "grid4", (G ** 3, 4), grid4.device)
-    cb.require(poses, "poses", (k, 16), grid4.device)
+    cb.require(grid4, "grid4", lead + (G ** 3, 4), grid4.device)
+    cb.require(poses, "poses", lead + (k, 16), grid4.device)
     cb.require_kernel_input(grid4, "grid4")
     cb.require_kernel_input(poses, "poses")
 
 
-def _launch_fwd(scene: SceneSpec, grid4, poses, softness: float):
-    _check_packed(scene, grid4, poses)
-    out = torch.empty((grid4.shape[0], 3), device=grid4.device, dtype=torch.float32)
+def _launch_fwd(scene: SceneSpec, grid4, poses, softness, name: str = "grid_op"):
+    """K8 forward over one env (grid4 (G^3, 4), poses (k, 16), softness
+    (1,)) or B envs (grid4 (B, G^3, 4), poses (B, k, 16), softness (B,))."""
+    lead = tuple(grid4.shape[:-2])
+    B = grid4.shape[0] if lead else 1
+    _check_packed(scene, grid4, poses, lead)
+    cb.require(softness, "softness", (B,), grid4.device)
+    cb.require_kernel_input(softness, "softness")
+    out = torch.empty(grid4.shape[:-1] + (3,), device=grid4.device, dtype=torch.float32)
     err = cb.library().plb_grid_op(
-        grid4.data_ptr(), poses.data_ptr(), out.data_ptr(), prim_table(scene.primitives),
-        *_consts(scene, softness), grid4.device.index, cb.stream_of(grid4))
-    cb.check(err, "grid_op")
-    launches["grid_op"] += 1
+        grid4.data_ptr(), poses.data_ptr(), softness.data_ptr(), out.data_ptr(),
+        prim_table(scene.primitives), B, *_consts(scene), grid4.device.index,
+        cb.stream_of(grid4))
+    cb.check(err, name)
+    launches[name] += 1
     return out
 
 
@@ -171,10 +201,11 @@ def grid_op_bwd(scene: SceneSpec, grid4, poses, softness: float, ct):
     dgrid4 = torch.empty_like(grid4)
     dposes = torch.empty_like(poses)
     partials = torch.empty((nblocks, k, 19), device=grid4.device, dtype=torch.float32)
+    G, dx, dt, *rest = _consts(scene)
     err = cb.library().plb_grid_op_bwd(
         grid4.data_ptr(), poses.data_ptr(), ct.data_ptr(), dgrid4.data_ptr(),
         dposes.data_ptr(), partials.data_ptr(), prim_table(scene.primitives),
-        *_consts(scene, softness), grid4.device.index, cb.stream_of(grid4))
+        G, dx, dt, float(softness), *rest, grid4.device.index, cb.stream_of(grid4))
     cb.check(err, "grid_op_bwd")
     launches["grid_op_bwd"] += 1
     return dgrid4, dposes
@@ -188,7 +219,7 @@ class GridOp(torch.autograd.Function):
     def forward(ctx, grid4, poses, scene, softness):
         ctx.scene, ctx.softness = scene, softness
         ctx.save_for_backward(grid4, poses)
-        return _launch_fwd(scene, grid4, poses, softness)
+        return _launch_fwd(scene, grid4, poses, _softness_tensor(softness, grid4.device))
 
     @staticmethod
     def backward(ctx, ct):
@@ -209,3 +240,20 @@ def grid_op(scene: SceneSpec, grid4, pose_f, pose_f1, softness: float):
     if grid4.device.type == "cpu":
         return grid_op_plain(scene, grid4, pose_f, pose_f1, softness)
     return GridOp.apply(grid4, pack_poses(pose_f, pose_f1), scene, float(softness))
+
+
+def grid_op_batched(scene: SceneSpec, grid4, pose_f, pose_f1, softness):
+    """grid4 (B, G^3, 4), poses (pos (B, k, 3), rot (B, k, 4), gap (B, k)) at
+    f and f+1, softness (B,) -> grid_v (B, G^3, 3); the K8 forward kernel
+    over B envs on CUDA, `grid_op_plain_batched` on the CPU. Forward only."""
+    B, G, k = grid4.shape[0], scene.simulator.n_grid, len(scene.primitives)
+    cb.require(grid4, "grid4", (B, G ** 3, 4), grid4.device)
+    for pose in (pose_f, pose_f1):
+        for t, name, shape in zip(pose, ("pos", "rot", "gap"),
+                                  ((B, k, 3), (B, k, 4), (B, k))):
+            cb.require(t, name, shape, grid4.device)
+    cb.require(softness, "softness", (B,), grid4.device)
+    cb.require_no_grad("grid_op_batched", grid4, *pose_f, *pose_f1, softness)
+    if grid4.device.type == "cpu":
+        return grid_op_plain_batched(scene, grid4, pose_f, pose_f1, softness)
+    return _launch_fwd(scene, grid4, pack_poses(pose_f, pose_f1), softness, "grid_op_batched")

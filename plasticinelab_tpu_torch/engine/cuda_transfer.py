@@ -30,6 +30,14 @@ the H100 the natural form is the reference's own: one thread per particle,
   dx terms run through the spline weight derivatives (chained by inv_dx)
   and through dpos = cell - x inv_dx.
 
+The forward kernels take a batch of envs (x (B, n, 3), grids (B, G^3, C)),
+one thread per particle of all envs, each scattering into or gathering from
+its own env's grid. So they also replace the batched grids of K3, K5 and K7
+forward (`pallas_local.py:725` `transfer_fns_batched`, `:767` and `:793`;
+`:865` `mass_fns_batched`, `:892`): `p2g_batched`, `g2p_batched` and
+`grid_mass_batched` launch them over B envs, `p2g`, `g2p` and `grid_mass`
+with B = 1. The batched wrappers are forward only.
+
 Each wrapper takes its plain version (differentiable through index_add_
 and gather) only for a CPU tensor; for a CUDA tensor it launches its kernel
 (float32, contiguous) or raises, and so do the backwards. `launches` counts
@@ -44,7 +52,7 @@ from . import cuda_build as cb
 from .transfer import stencil
 
 launches = {"p2g": 0, "grid_mass": 0, "g2p": 0, "p2g_bwd": 0, "grid_mass_bwd": 0,
-            "g2p_bwd": 0}
+            "g2p_bwd": 0, "p2g_batched": 0, "grid_mass_batched": 0, "g2p_batched": 0}
 
 
 def reset_launches() -> None:
@@ -56,57 +64,103 @@ def reset_launches() -> None:
 # plain versions
 # ---------------------------------------------------------------------------
 
-def p2g_plain(scene: SceneSpec, x, v, affine):
-    """APIC momentum + mass P2G -> (G^3, 4) [mom x, y, z, mass]:
-    mom_s = sum_p W (p_mass v_s + dx affine_s . dpos), mass = sum_p W p_mass
-    (reference p2g :157-184)."""
+def _batched_stencil(scene: SceneSpec, x):
+    """Stencil of B envs' particles x (B, n, 3), flattened env-major to
+    (B n, 27): idx points into the (B G^3)-row grid of all envs, whose env b
+    starts at row b G^3."""
+    B, n = x.shape[:2]
+    idx, W, dpos = stencil(scene, x.reshape(B * n, 3))
+    env_row = torch.arange(B, device=x.device).repeat_interleave(n) * scene.simulator.n_grid ** 3
+    return idx + env_row[:, None], W, dpos
+
+
+def p2g_plain_batched(scene: SceneSpec, x, v, affine):
+    """APIC momentum + mass P2G of B envs, x and v (B, n, 3), affine (B, n,
+    3, 3) -> (B, G^3, 4) [mom x, y, z, mass]: mom_s = sum_p W (p_mass v_s +
+    dx affine_s . dpos), mass = sum_p W p_mass (reference p2g :157-184), one
+    index_add_ into the flat (B G^3, 4) grid."""
     sim = scene.simulator
-    idx, W, dpos = stencil(scene, x)
-    mom = sim.p_mass * v[:, None, :] + sim.dx * torch.einsum("nij,nkj->nki", affine, dpos)
+    B, n = x.shape[:2]
+    G3 = sim.n_grid ** 3
+    idx, W, dpos = _batched_stencil(scene, x)
+    mom = (sim.p_mass * v.reshape(B * n, 1, 3)
+           + sim.dx * torch.einsum("nij,nkj->nki", affine.reshape(B * n, 3, 3), dpos))
     contrib = torch.cat([W[..., None] * mom, (W * sim.p_mass)[..., None]], dim=-1)
-    grid = x.new_zeros((sim.n_grid ** 3, 4))
-    return grid.index_add_(0, idx.reshape(-1), contrib.reshape(-1, 4))
+    grid = x.new_zeros((B * G3, 4)).index_add_(0, idx.reshape(-1), contrib.reshape(-1, 4))
+    return grid.reshape(B, G3, 4)
+
+
+def p2g_plain(scene: SceneSpec, x, v, affine):
+    """`p2g_plain_batched` of one env: x, v (n, 3), affine (n, 3, 3) -> (G^3,
+    4)."""
+    return p2g_plain_batched(scene, x[None], v[None], affine[None])[0]
+
+
+def grid_mass_plain_batched(scene: SceneSpec, x):
+    """Mass-only P2G of B envs, x (B, n, 3) -> (B, G^3) (reference
+    compute_grid_m_kernel :382-392)."""
+    B = x.shape[0]
+    G3 = scene.simulator.n_grid ** 3
+    idx, W, _ = _batched_stencil(scene, x)
+    grid = x.new_zeros((B * G3,))
+    return grid.index_add_(0, idx.reshape(-1), (W * scene.simulator.p_mass).reshape(-1)).reshape(
+        B, G3)
 
 
 def grid_mass_plain(scene: SceneSpec, x):
-    """Mass-only P2G -> (G^3,) (reference compute_grid_m_kernel :382-392)."""
-    sim = scene.simulator
-    idx, W, _ = stencil(scene, x)
-    grid = x.new_zeros((sim.n_grid ** 3,))
-    return grid.index_add_(0, idx.reshape(-1), (W * sim.p_mass).reshape(-1))
+    """`grid_mass_plain_batched` of one env: x (n, 3) -> (G^3,)."""
+    return grid_mass_plain_batched(scene, x[None])[0]
 
 
-def g2p_plain(scene: SceneSpec, x, grid_v):
-    """Velocity gather, APIC C and advection -> (new_v (n,3), new_C (n,3,3),
-    new_x (n,3)): v = sum W g, C = 4 inv_dx sum W g dpos^T, x' = clip(x + dt
-    v, 0, 1 - 3 dx) (reference g2p :223-243, `mpm.py:351-353`)."""
+def g2p_plain_batched(scene: SceneSpec, x, grid_v):
+    """Velocity gather, APIC C and advection of B envs, x (B, n, 3), grid_v
+    (B, G^3, 3) -> (new_v (B, n, 3), new_C (B, n, 3, 3), new_x (B, n, 3)):
+    v = sum W g, C = 4 inv_dx sum W g dpos^T, x' = clip(x + dt v, 0, 1 - 3
+    dx) (reference g2p :223-243, `mpm.py:351-353`), one gather from the
+    flat (B G^3, 3) grid."""
     sim = scene.simulator
-    idx, W, dpos = stencil(scene, x)
-    g = grid_v[idx]  # (n, 27, 3)
+    B, n = x.shape[:2]
+    idx, W, dpos = _batched_stencil(scene, x)
+    x = x.reshape(B * n, 3)
+    g = grid_v.reshape(-1, 3)[idx]  # (B n, 27, 3)
     new_v = torch.sum(W[..., None] * g, dim=1)
     new_C = (4.0 * sim.inv_dx) * torch.einsum("nj,njs,nja->nsa", W, g, dpos)
     # max(min(., hi), lo) as the reference (mpm.py:351-353): at a tie its
     # gradient splits in half, where torch.clamp would pass it whole
     hi, lo = x.new_tensor(1.0 - 3 * sim.dx), x.new_tensor(0.0)
     new_x = torch.maximum(torch.minimum(x + sim.dt * new_v, hi), lo)
-    return new_v, new_C, new_x
+    return new_v.reshape(B, n, 3), new_C.reshape(B, n, 3, 3), new_x.reshape(B, n, 3)
+
+
+def g2p_plain(scene: SceneSpec, x, grid_v):
+    """`g2p_plain_batched` of one env: x (n, 3), grid_v (G^3, 3) -> (new_v
+    (n, 3), new_C (n, 3, 3), new_x (n, 3))."""
+    return tuple(t[0] for t in g2p_plain_batched(scene, x[None], grid_v[None]))
 
 
 # ---------------------------------------------------------------------------
 # kernels and their autograd Functions
 # ---------------------------------------------------------------------------
 
-def _launch_p2g(scene: SceneSpec, x, v, affine):
-    for t, name in ((x, "x"), (v, "v"), (affine, "affine")):
-        cb.require_kernel_input(t, name)
+def _envs(x) -> tuple:
+    """(B, n) of particles x (n, 3) (one env) or (B, n, 3)."""
+    return (x.shape[0], x.shape[1]) if x.dim() == 3 else (1, x.shape[0])
+
+
+def _launch_p2g(scene: SceneSpec, x, v, affine, name: str = "p2g"):
+    """K3 over x (n, 3) -> (G^3, 4), or over B envs x (B, n, 3) -> (B, G^3, 4)."""
+    for t, arg in ((x, "x"), (v, "v"), (affine, "affine")):
+        cb.require_kernel_input(t, arg)
     sim = scene.simulator
-    grid = torch.zeros((sim.n_grid ** 3, 4), device=x.device, dtype=torch.float32)
+    B, n = _envs(x)
+    grid = torch.zeros(x.shape[:-2] + (sim.n_grid ** 3, 4), device=x.device,
+                       dtype=torch.float32)
     err = cb.library().plb_p2g(
-        x.data_ptr(), v.data_ptr(), affine.data_ptr(), grid.data_ptr(), x.shape[0],
+        x.data_ptr(), v.data_ptr(), affine.data_ptr(), grid.data_ptr(), n, B,
         sim.n_grid, sim.inv_dx, sim.dx, sim.p_mass, x.device.index,
         cb.stream_of(x))
-    cb.check(err, "p2g")
-    launches["p2g"] += 1
+    cb.check(err, name)
+    launches[name] += 1
     return grid
 
 
@@ -143,15 +197,17 @@ class P2G(torch.autograd.Function):
         return (*p2g_bwd(ctx.scene, x, v, affine, ct.contiguous()), None)
 
 
-def _launch_grid_mass(scene: SceneSpec, x):
+def _launch_grid_mass(scene: SceneSpec, x, name: str = "grid_mass"):
+    """K7 forward over x (n, 3) -> (G^3,), or over x (B, n, 3) -> (B, G^3)."""
     cb.require_kernel_input(x, "x")
     sim = scene.simulator
-    grid = torch.zeros((sim.n_grid ** 3,), device=x.device, dtype=torch.float32)
+    B, n = _envs(x)
+    grid = torch.zeros(x.shape[:-2] + (sim.n_grid ** 3,), device=x.device, dtype=torch.float32)
     err = cb.library().plb_grid_mass(
-        x.data_ptr(), grid.data_ptr(), x.shape[0], sim.n_grid, sim.inv_dx, sim.p_mass,
+        x.data_ptr(), grid.data_ptr(), n, B, sim.n_grid, sim.inv_dx, sim.p_mass,
         x.device.index, cb.stream_of(x))
-    cb.check(err, "grid_mass")
-    launches["grid_mass"] += 1
+    cb.check(err, name)
+    launches[name] += 1
     return grid
 
 
@@ -187,19 +243,22 @@ class GridMass(torch.autograd.Function):
         return grid_mass_bwd(ctx.scene, x, ct.contiguous()), None
 
 
-def _launch_g2p(scene: SceneSpec, x, grid_v):
+def _launch_g2p(scene: SceneSpec, x, grid_v, name: str = "g2p"):
+    """K5 over x (n, 3) and grid_v (G^3, 3), or over B envs: x (B, n, 3),
+    grid_v (B, G^3, 3) -> new_v, new_C, new_x with x's leading shape."""
     cb.require_kernel_input(x, "x")
     cb.require_kernel_input(grid_v, "grid_v")
-    n, sim = x.shape[0], scene.simulator
-    new_v = torch.empty((n, 3), device=x.device, dtype=torch.float32)
-    new_C = torch.empty((n, 3, 3), device=x.device, dtype=torch.float32)
-    new_x = torch.empty((n, 3), device=x.device, dtype=torch.float32)
+    sim = scene.simulator
+    B, n = _envs(x)
+    new_v = torch.empty_like(x)
+    new_C = torch.empty(x.shape + (3,), device=x.device, dtype=torch.float32)
+    new_x = torch.empty_like(x)
     err = cb.library().plb_g2p(
         x.data_ptr(), grid_v.data_ptr(), new_v.data_ptr(), new_C.data_ptr(),
-        new_x.data_ptr(), n, sim.n_grid, sim.inv_dx, sim.dt,
+        new_x.data_ptr(), n, B, sim.n_grid, sim.inv_dx, sim.dt,
         1.0 - 3 * sim.dx, x.device.index, cb.stream_of(x))
-    cb.check(err, "g2p")
-    launches["g2p"] += 1
+    cb.check(err, name)
+    launches[name] += 1
     return new_v, new_C, new_x
 
 
@@ -284,3 +343,46 @@ def g2p(scene: SceneSpec, x, grid_v):
     if x.device.type == "cpu":
         return g2p_plain(scene, x, grid_v)
     return G2P.apply(x, grid_v, scene)
+
+
+# batched wrappers: B envs in one launch, forward only (the batched VJPs
+# K4-b, K6-b and K7-bwd-b are not ported)
+
+def _check_batch(x, v, affine):
+    B, n = x.shape[:2]
+    for t, name, shape in ((x, "x", (B, n, 3)), (v, "v", (B, n, 3)),
+                           (affine, "affine", (B, n, 3, 3))):
+        cb.require(t, name, shape, x.device)
+
+
+def p2g_batched(scene: SceneSpec, x, v, affine):
+    """x, v (B, n, 3), affine (B, n, 3, 3) -> grid4 (B, G^3, 4); the K3
+    kernel over B envs on CUDA, `p2g_plain_batched` on the CPU."""
+    _check_batch(x, v, affine)
+    cb.require_no_grad("p2g_batched", x, v, affine)
+    if x.device.type == "cpu":
+        return p2g_plain_batched(scene, x, v, affine)
+    return _launch_p2g(scene, x, v, affine, "p2g_batched")
+
+
+def grid_mass_batched(scene: SceneSpec, x):
+    """x (B, n, 3) -> grid_m (B, G^3); the K7 forward kernel over B envs on
+    CUDA, `grid_mass_plain_batched` on the CPU."""
+    cb.require(x, "x", (x.shape[0], x.shape[1], 3), x.device)
+    cb.require_no_grad("grid_mass_batched", x)
+    if x.device.type == "cpu":
+        return grid_mass_plain_batched(scene, x)
+    return _launch_grid_mass(scene, x, "grid_mass_batched")
+
+
+def g2p_batched(scene: SceneSpec, x, grid_v):
+    """x (B, n, 3), grid_v (B, G^3, 3) -> (new_v, new_C, new_x) with a
+    leading B; the K5 kernel over B envs on CUDA, `g2p_plain_batched` on the
+    CPU."""
+    B, n = x.shape[:2]
+    cb.require(x, "x", (B, n, 3), x.device)
+    cb.require(grid_v, "grid_v", (B, scene.simulator.n_grid ** 3, 3), x.device)
+    cb.require_no_grad("g2p_batched", x, grid_v)
+    if x.device.type == "cpu":
+        return g2p_plain_batched(scene, x, grid_v)
+    return _launch_g2p(scene, x, grid_v, "g2p_batched")

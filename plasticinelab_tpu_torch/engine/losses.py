@@ -4,7 +4,10 @@ Counterpart of `plasticinelab_tpu/engine/losses.py` on the full grid:
 `loss_from_crop` with the crop equal to the grid is `loss_and_components`
 (`losses.py:77-149`). Behavioral reference: plb/engine/losses/loss.py. The
 goal SDF is the exact Euclidean distance transform from scipy, as in the
-TPU package.
+TPU package. Every function also takes the states and grid masses of B envs
+with a leading B (the vmapped `loss_from_crop` of
+`plasticinelab_tpu/parallel/rollout.py:178-181`): sums run over the last
+axis.
 """
 from __future__ import annotations
 
@@ -61,43 +64,46 @@ def _soft_weight(d):
 
 def contact_distances(scene: SceneSpec, state: SimState):
     """Per movable primitive: the (soft-)min clamped SDF over all particles
-    (reference loss.py:116-140). Returns a list of 0-d tensors."""
+    (reference loss.py:116-140), each env's against its own pose. Returns a
+    list of tensors of the states' leading shape (0-d for one env)."""
     out = []
     soft = scene.env.loss.soft_contact
     for i, p in enumerate(scene.primitives):
         if p.action_dim <= 0:
             continue  # only movable primitives (loss.py:21-24)
-        d = prim.sdf(p, state.prim_pos[i], state.prim_rot[i], state.prim_gap[i], state.x)
+        d = prim.sdf(p, state.prim_pos[..., i, None, :], state.prim_rot[..., i, None, :],
+                     state.prim_gap[..., i, None], state.x)
         d = torch.clamp(d, min=0.0)
         if soft:
             w = _soft_weight(d)
-            out.append(torch.sum(d * w) / torch.sum(w))
+            out.append(torch.sum(d * w, dim=-1) / torch.sum(w, dim=-1))
         else:
-            out.append(torch.min(d))
+            out.append(torch.amin(d, dim=-1))
     return out
 
 
 def iou(grid_m, target_density):
-    """Soft IoU (reference iou_kernel, loss.py:239-254)."""
-    ma = torch.max(grid_m)
-    mb = torch.max(target_density)
-    I = torch.sum(grid_m * target_density) / ma / mb
-    Ua = torch.sum(grid_m) / ma
-    Ub = torch.sum(target_density) / mb
+    """Soft IoU (reference iou_kernel, loss.py:239-254) over the last axis."""
+    ma = torch.amax(grid_m, dim=-1)
+    mb = torch.amax(target_density, dim=-1)
+    I = torch.sum(grid_m * target_density, dim=-1) / ma / mb
+    Ua = torch.sum(grid_m, dim=-1) / ma
+    Ub = torch.sum(target_density, dim=-1) / mb
     return I / (Ua + Ub - I)
 
 
 def loss_and_components(scene: SceneSpec, loss_state: LossState,
                         state: SimState, grid_m) -> Dict[str, torch.Tensor]:
     """Total loss, its components and the IoU at `state`, whose grid mass is
-    `grid_m` (G^3,) (reference compute_loss_kernel, loss.py:186-208)."""
+    `grid_m` (G^3,) (reference compute_loss_kernel, loss.py:186-208); each
+    of shape (B,) for B envs' states and grid_m (B, G^3)."""
     ls = scene.env.loss
     td = loss_state.target_density
-    density_loss = torch.sum(torch.abs(grid_m - td))
-    sdf_loss = torch.sum(loss_state.target_sdf * grid_m)
+    density_loss = torch.sum(torch.abs(grid_m - td), dim=-1)
+    sdf_loss = torch.sum(loss_state.target_sdf * grid_m, dim=-1)
     dists = contact_distances(scene, state)
     contact_loss = (sum(d * d for d in dists) if dists
-                    else state.x.new_zeros(()))
+                    else state.x.new_zeros(state.x.shape[:-2]))
     total = (ls.weight_contact * contact_loss
              + ls.weight_density * density_loss
              + ls.weight_sdf * sdf_loss)

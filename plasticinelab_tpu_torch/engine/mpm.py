@@ -21,6 +21,16 @@ to hold the kernels against them. Both are differentiable in the state and
 the actions: on CUDA each kernel's autograd Function runs its backward
 kernel (K2, K4, K8 backward, K6, K7 backward); the plain versions go
 through torch.autograd.
+
+`env_step_batched` steps B envs at once, states with a leading B, the
+counterpart of `mpm.py:629-795` (`substep_rows_batched`,
+`env_step_batched`) without the sort, crop and windows: stress on the B n
+particles, then the batched kernels (`KERNEL_OPS_BATCHED`: K3, K8 forward
+and K5 over B envs, K7 forward for the loss), each launched once per
+substep for the whole batch. Controls and forward kinematics run over the
+batch in the same tensor ops, so a substep's launches do not grow with B.
+It is forward only: the batched wrappers raise on inputs that require
+grad.
 """
 from __future__ import annotations
 
@@ -33,8 +43,9 @@ from . import cuda_gridop, cuda_stress, cuda_transfer
 from . import primitives as prim
 from .state import Controls, Materials, SimState
 
-__all__ = ["Ops", "KERNEL_OPS", "PLAIN_OPS", "make_controls", "substep",
-           "env_step", "env_step_with_grid_m", "resolve_remat"]
+__all__ = ["Ops", "KERNEL_OPS", "PLAIN_OPS", "KERNEL_OPS_BATCHED", "PLAIN_OPS_BATCHED",
+           "make_controls", "make_controls_batched", "fk_step", "substep", "substep_batched",
+           "env_step", "env_step_with_grid_m", "env_step_batched", "resolve_remat"]
 
 
 class Ops(NamedTuple):
@@ -52,46 +63,68 @@ KERNEL_OPS = Ops(cuda_stress.stress_affine, cuda_transfer.p2g,
 PLAIN_OPS = Ops(cuda_stress.stress_affine_plain, cuda_transfer.p2g_plain,
                 cuda_gridop.grid_op_plain, cuda_transfer.g2p_plain,
                 cuda_transfer.grid_mass_plain)
+# B envs per call: stress on the flat B n particles, the rest batched
+KERNEL_OPS_BATCHED = Ops(cuda_stress.stress_affine, cuda_transfer.p2g_batched,
+                         cuda_gridop.grid_op_batched, cuda_transfer.g2p_batched,
+                         cuda_transfer.grid_mass_batched)
+PLAIN_OPS_BATCHED = Ops(cuda_stress.stress_affine_plain, cuda_transfer.p2g_plain_batched,
+                        cuda_gridop.grid_op_plain_batched, cuda_transfer.g2p_plain_batched,
+                        cuda_transfer.grid_mass_plain_batched)
+
+
+def _clip(action):
+    # min(max(., -1), 1) as the reference's clip: at a bound the gradient
+    # splits in half, where torch.clamp would pass it whole
+    one = action.new_ones(())
+    return torch.minimum(torch.maximum(action, -one), one)
+
+
+def _controls(scene: SceneSpec, action) -> Controls:
+    """Clipped actions (..., action_dim) -> per-substep Controls with the
+    same leading dims: v, w (..., k, 3), gap_vel (..., k)."""
+    n_sub = scene.simulator.substeps
+    offs = scene.action_dims
+    lead = action.shape[:-1]
+    if not scene.primitives:
+        z3 = action.new_zeros(lead + (0, 3))
+        return Controls(v=z3, w=z3, gap_vel=action.new_zeros(lead + (0,)))
+    vwg = [prim.action_to_velocity(p, action[..., offs[i]: offs[i + 1]], n_sub)
+           for i, p in enumerate(scene.primitives)]
+    return Controls(v=torch.stack([c[0] for c in vwg], dim=-2),
+                    w=torch.stack([c[1] for c in vwg], dim=-2),
+                    gap_vel=torch.stack([c[2] for c in vwg], dim=-1))
 
 
 def make_controls(scene: SceneSpec, action, device, dtype) -> Controls:
     """Full action vector (action_dim,) -> per-substep Controls, clipped to
     [-1, 1] (reference primitives.py:289-293). action None means zeros. A
     tensor action stays in the autograd graph."""
-    n_sub = scene.simulator.substeps
-    offs = scene.action_dims
-    if action is not None:
-        action = torch.as_tensor(action, dtype=dtype, device=device).reshape(-1)
-        # min(max(., -1), 1) as the reference's clip: at a bound the
-        # gradient splits in half, where torch.clamp would pass it whole
-        one = action.new_ones(())
-        action = torch.minimum(torch.maximum(action, -one), one)
-    vs, ws, gs = [], [], []
-    for i, p in enumerate(scene.primitives):
-        if action is None or p.action_dim == 0:
-            a = torch.zeros((max(p.action_dim, 1),), dtype=dtype, device=device)
-        else:
-            a = action[offs[i]: offs[i + 1]]
-        v, w, g = prim.action_to_velocity(p, a, n_sub)
-        vs.append(v)
-        ws.append(w)
-        gs.append(g)
-    if not scene.primitives:
-        z3 = torch.zeros((0, 3), dtype=dtype, device=device)
-        return Controls(v=z3, w=z3, gap_vel=torch.zeros((0,), dtype=dtype, device=device))
-    return Controls(v=torch.stack(vs), w=torch.stack(ws), gap_vel=torch.stack(gs))
+    if action is None:
+        action = torch.zeros((scene.action_dim,), dtype=dtype, device=device)
+    else:
+        action = _clip(torch.as_tensor(action, dtype=dtype, device=device).reshape(-1))
+    return _controls(scene, action)
+
+
+def make_controls_batched(scene: SceneSpec, actions, device, dtype) -> Controls:
+    """Actions of B envs (B, action_dim) -> Controls with a leading B,
+    clipped to [-1, 1], in one set of tensor ops for the whole batch."""
+    actions = torch.as_tensor(actions, dtype=dtype, device=device)
+    return _controls(scene, _clip(actions.reshape(actions.shape[0], -1)))
 
 
 def fk_step(scene: SceneSpec, poses, ctrl: Controls):
-    """Forward kinematics of all primitives: poses (pos, rot, gap) at f ->
-    at f+1."""
+    """Forward kinematics of all primitives: poses (pos (..., k, 3), rot
+    (..., k, 4), gap (..., k)) at f -> at f+1. Leading dims are envs,
+    stepped in the same tensor ops (`mpm.py:_fk_step_batched`)."""
     if not scene.primitives:
         return poses
     pos_f, rot_f, gap_f = poses
-    out = [prim.forward_kinematics(p, pos_f[i], rot_f[i], gap_f[i], ctrl.v[i],
-                                   ctrl.w[i], ctrl.gap_vel[i])
+    out = [prim.forward_kinematics(p, pos_f[..., i, :], rot_f[..., i, :], gap_f[..., i],
+                                   ctrl.v[..., i, :], ctrl.w[..., i, :], ctrl.gap_vel[..., i])
            for i, p in enumerate(scene.primitives)]
-    return tuple(torch.stack([o[j] for o in out]) for j in range(3))
+    return (torch.stack([o[0] for o in out], dim=-2), torch.stack([o[1] for o in out], dim=-2),
+            torch.stack([o[2] for o in out], dim=-1))
 
 
 def substep(scene: SceneSpec, mats: Materials, state: SimState, ctrl: Controls,
@@ -123,6 +156,39 @@ def env_step_with_grid_m(scene: SceneSpec, mats: Materials, state: SimState,
     (new_state, grid_m (G^3,))."""
     state = env_step(scene, mats, state, action, softness, ops)
     return state, ops.grid_mass(scene, state.x)
+
+
+def substep_batched(scene: SceneSpec, mats: Materials, states: SimState, ctrl: Controls,
+                    softness, ops: Ops = KERNEL_OPS_BATCHED) -> SimState:
+    """One substep of B envs (states and ctrl with a leading B, softness
+    (B,)) (`mpm.py:substep_rows_batched`, :629-689)."""
+    B, n = states.x.shape[:2]
+    new_F, affine = ops.stress_affine(scene, mats, states.C.reshape(B * n, 3, 3),
+                                      states.F.reshape(B * n, 3, 3))
+    grid4 = ops.p2g(scene, states.x, states.v, affine.reshape(B, n, 3, 3))
+    pose_f = (states.prim_pos, states.prim_rot, states.prim_gap)
+    pose_f1 = fk_step(scene, pose_f, ctrl)
+    grid_v = ops.grid_op(scene, grid4, pose_f, pose_f1, softness)
+    new_v, new_C, new_x = ops.g2p(scene, states.x, grid_v)
+    return SimState(x=new_x, v=new_v, C=new_C, F=new_F.reshape(B, n, 3, 3),
+                    prim_pos=pose_f1[0], prim_rot=pose_f1[1], prim_gap=pose_f1[2])
+
+
+def env_step_batched(scene: SceneSpec, mats: Materials, states: SimState, actions, softness,
+                     want_grid_m: bool = False, ops: Ops = KERNEL_OPS_BATCHED):
+    """One env step of B envs: states with a leading B, actions (B,
+    action_dim), softness a scalar or (B,) -> new states and, with
+    `want_grid_m`, their grid mass (B, G^3) for the loss (`mpm.py:715-795`
+    on the full grid: no sort, crop or windows)."""
+    x = states.x
+    B = x.shape[0]
+    ctrl = make_controls_batched(scene, actions, x.device, x.dtype)
+    softness = torch.as_tensor(softness, dtype=x.dtype, device=x.device).expand(B).contiguous()
+    for _ in range(scene.simulator.substeps):
+        states = substep_batched(scene, mats, states, ctrl, softness, ops)
+    if want_grid_m:
+        return states, ops.grid_mass(scene, states.x)
+    return states
 
 
 # Bytes one substep keeps alive for the backward when nothing is recomputed

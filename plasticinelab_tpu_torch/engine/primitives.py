@@ -240,7 +240,8 @@ def collide(spec: PrimitiveSpec, pos_f, rot_f, gap_f, pos_f1, rot_f1,
 # --------------------------------------------------------------------------
 
 def forward_kinematics(spec: PrimitiveSpec, pos, rot, gap, v, w, gap_vel):
-    """One-substep pose integration -> (pos', rot', gap').
+    """One-substep pose integration -> (pos', rot', gap'). Elementwise over
+    leading dims (envs): pos (..., 3), rot (..., 4), gap (...).
 
     Base: primive_base.py:117-121; RollingPin: primitives.py:66-80;
     Chopsticks: primitives.py:94-99.
@@ -251,7 +252,8 @@ def forward_kinematics(spec: PrimitiveSpec, pos, rot, gap, v, w, gap_vel):
     if spec.shape == "RollingPin":
         dw, dth, dy = v[..., 0], v[..., 1], v[..., 2]
         y_dir = qrot(rot, _vec(pos, 0.0, -1.0, 0.0))
-        x_dir = torch.linalg.cross(_vec(pos, 0.0, 1.0, 0.0), y_dir) * dw[..., None] * 0.03
+        x_dir = torch.linalg.cross(_vec(pos, 0.0, 1.0, 0.0).expand_as(y_dir), y_dir)
+        x_dir = x_dir * dw[..., None] * 0.03
         x_dir = torch.stack([x_dir[..., 0], dy, x_dir[..., 2]], dim=-1)
         zeros = torch.zeros_like(dth)
         new_rot = qmul(
@@ -269,14 +271,16 @@ def forward_kinematics(spec: PrimitiveSpec, pos, rot, gap, v, w, gap_vel):
 
 
 def action_to_velocity(spec: PrimitiveSpec, action, n_substeps):
-    """Env-step action slice -> per-substep (v, w, gap_vel)
-    (reference primive_base.py:184-192, Chopsticks primitives.py:101-109)."""
-    zeros3 = action.new_zeros(3)
-    zero = action.new_zeros(())
+    """Env-step action slice (..., action_dim) -> per-substep (v (..., 3),
+    w (..., 3), gap_vel (...)) (reference primive_base.py:184-192,
+    Chopsticks primitives.py:101-109); leading dims are envs."""
+    lead = action.shape[:-1]
+    zeros3 = action.new_zeros(lead + (3,))
+    zero = action.new_zeros(lead)
     if spec.action_dim == 0:
         return zeros3, zeros3, zero
     a = action * _vec(action, *spec.action_scale) / n_substeps
-    v = a[:3]
-    w = a[3:6] if spec.action_dim > 3 else zeros3
-    gap_vel = a[6] if spec.shape == "Chopsticks" else zero
+    v = a[..., :3]
+    w = a[..., 3:6] if spec.action_dim > 3 else zeros3
+    gap_vel = a[..., 6] if spec.shape == "Chopsticks" else zero
     return v, w, gap_vel

@@ -30,6 +30,7 @@ from .state import (
     flat_primitive_states,
     initial_state,
     scene_dtype,
+    state_fields as _fields,
     state_from_numpy,
     state_to_numpy,
 )
@@ -39,11 +40,6 @@ ASSET_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."
                           "plasticinelab_tpu", "envs", "assets")
 
 _LOSS_KEYS = ("loss", "contact_loss", "density_loss", "sdf_loss", "iou")
-
-
-def _fields(state: SimState):
-    return (state.x, state.v, state.C, state.F, state.prim_pos, state.prim_rot,
-            state.prim_gap)
 
 
 def rollout_losses(scene, mats, loss_state, state0: SimState, actions: torch.Tensor,
@@ -78,6 +74,29 @@ def rollout_losses(scene, mats, loss_state, state0: SimState, actions: torch.Ten
     return torch.stack(rows), state
 
 
+def observation(scene: SceneSpec, state: SimState) -> torch.Tensor:
+    """State observation (reference envs/env.py:33-41 layout): strided
+    particle x|v, then the flat primitive states; (B, obs_dim) for states
+    with a leading B."""
+    step = scene.simulator.n_particles // scene.env.n_observed_particles
+    xv = torch.cat([state.x[..., ::step, :], state.v[..., ::step, :]], dim=-1).flatten(-2)
+    return torch.cat([xv, flat_primitive_states(scene, state)], dim=-1)
+
+
+def load_target_density(scene: SceneSpec) -> np.ndarray:
+    """The scene's goal grid (G, G, G) from its `target_path`, looked up as
+    given and then in the TPU package's asset directory; zeros where the
+    scene names none."""
+    path = scene.env.loss.target_path
+    if not path:
+        return np.zeros((scene.simulator.n_grid,) * 3)
+    cand = [path, os.path.join(ASSET_ROOT, os.path.basename(path))]
+    found = [c for c in cand if os.path.exists(c)]
+    if not found:
+        raise FileNotFoundError(f"goal grid not found: {path}")
+    return np.load(found[0])
+
+
 class PhysicsEnv:
     """Owns one scene's state and physics on one device. Replaces the
     reference TaichiEnv."""
@@ -105,16 +124,7 @@ class PhysicsEnv:
     # construction helpers
     # ------------------------------------------------------------------
     def _load_target(self):
-        path = self.scene.env.loss.target_path
-        if not path:
-            grids = np.zeros((self.scene.simulator.n_grid,) * 3)
-        else:
-            cand = [path, os.path.join(ASSET_ROOT, os.path.basename(path))]
-            found = [c for c in cand if os.path.exists(c)]
-            if not found:
-                raise FileNotFoundError(f"goal grid not found: {path}")
-            grids = np.load(found[0])
-        self.retarget(grids)
+        self.retarget(load_target_density(self.scene))
 
     def retarget(self, target_density: np.ndarray):
         """Swap the goal grid and reset the loss bookkeeping."""
@@ -130,12 +140,6 @@ class PhysicsEnv:
     def _loss_tensor(self, state: SimState, grid_m) -> torch.Tensor:
         info = losses_mod.loss_and_components(self.scene, self.loss_state, state, grid_m)
         return torch.stack([info[k] for k in _LOSS_KEYS])
-
-    def _obs(self, state: SimState) -> torch.Tensor:
-        """Observation (reference envs/env.py:33-41 layout)."""
-        step = self.n_particles // self.scene.env.n_observed_particles
-        xv = torch.cat([state.x[::step], state.v[::step]], dim=-1).reshape(-1)
-        return torch.cat([xv, flat_primitive_states(self.scene, state).reshape(-1)])
 
     # ------------------------------------------------------------------
     # reference TaichiEnv API
@@ -155,7 +159,7 @@ class PhysicsEnv:
             action = np.asarray(action, dtype=np.float64)
         self.state, grid_m = mpm.env_step_with_grid_m(
             self.scene, self.mats, self.state, action, self.softness)
-        self._pending = torch.cat([self._obs(self.state),
+        self._pending = torch.cat([observation(self.scene, self.state),
                                    self._loss_tensor(self.state, grid_m)])
         self._obs_host = self._loss_host = None
 
@@ -205,7 +209,7 @@ class PhysicsEnv:
         self._fetch()
         if self._obs_host is not None:
             return self._obs_host
-        return self._obs(self.state).cpu().numpy()
+        return observation(self.scene, self.state).cpu().numpy()
 
     def get_state(self) -> Dict[str, Any]:
         state_list: List[np.ndarray] = state_to_numpy(self.scene, self.state)

@@ -3,12 +3,13 @@
 Counterpart of `plasticinelab_tpu/engine/state.py`. One SimState per
 instant (reference globals plb/engine/mpm_simulator.py:33-51 and
 primive_base.py:31-44). Every tensor of a state lies on one device in one
-float dtype; the kernels take float32 on CUDA.
+float dtype; the kernels take float32 on CUDA. The states of B envs stepped
+together are one SimState whose tensors have a leading B.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -94,6 +95,35 @@ def initial_state(scene: SceneSpec, particles: np.ndarray, device,
     )
 
 
+def initial_states(scene: SceneSpec, particles: np.ndarray, batch: int, device,
+                   dtype: torch.dtype, jitter: float = 0.0,
+                   generator: Optional[torch.Generator] = None) -> SimState:
+    """`initial_state` tiled over `batch` envs, each env's particles moved
+    by uniform(-jitter, jitter) noise and clipped to [0, 0.95]
+    (`plasticinelab_tpu/parallel/rollout.py:110-117`). The noise is drawn on
+    the CPU from `generator` (a fresh default one if None), so a seed gives
+    the same starts on every device; its bits differ from the TPU package's
+    draws (its PRNGKey(seed) uniform) from the same seed."""
+    base = initial_state(scene, particles, "cpu", dtype)
+    tiled = [t.expand((batch,) + t.shape).contiguous() for t in state_fields(base)]
+    if jitter > 0:
+        noise = torch.rand(tiled[0].shape, generator=generator, dtype=dtype) * (2 * jitter) - jitter
+        tiled[0] = torch.clamp(tiled[0] + noise, 0.0, 0.95)
+    return SimState(*(t.to(device) for t in tiled))
+
+
+def state_fields(state: SimState):
+    """The tensors of a state in SimState order."""
+    return (state.x, state.v, state.C, state.F, state.prim_pos, state.prim_rot, state.prim_gap)
+
+
+def states_from_numpy(arrays: Sequence[np.ndarray], device, dtype: torch.dtype) -> SimState:
+    """A batch of states carried across from the TPU package: the fields of
+    its SimState with a leading B, in its order (x, v, C, F, prim_pos,
+    prim_rot, prim_gap), as numpy arrays."""
+    return SimState(*(torch.tensor(np.asarray(a), device=device, dtype=dtype) for a in arrays))
+
+
 def state_from_numpy(scene: SceneSpec, state_list: Sequence[np.ndarray],
                      device, dtype: torch.dtype) -> SimState:
     """The reference layout of `PhysicsEnv.get_state()["state"]` — x, v, F,
@@ -136,13 +166,14 @@ def state_to_numpy(scene: SceneSpec, state: SimState):
 
 def flat_primitive_states(scene: SceneSpec, state: SimState) -> torch.Tensor:
     """Concatenated per-primitive observation vectors: pos+rot (+gap for
-    Chopsticks), reference primive_base.py:143-146 / primitives.py:134-135."""
+    Chopsticks), reference primive_base.py:143-146 / primitives.py:134-135;
+    (B, dim) for states with a leading B."""
     outs = []
     for i, p in enumerate(scene.primitives):
-        outs.append(state.prim_pos[i])
-        outs.append(state.prim_rot[i])
+        outs.append(state.prim_pos[..., i, :])
+        outs.append(state.prim_rot[..., i, :])
         if p.shape == "Chopsticks":
-            outs.append(state.prim_gap[i : i + 1])
+            outs.append(state.prim_gap[..., i : i + 1])
     if not outs:
-        return state.x.new_zeros((0,))
-    return torch.cat(outs)
+        return state.x.new_zeros(state.x.shape[:-2] + (0,))
+    return torch.cat(outs, dim=-1)
