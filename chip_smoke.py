@@ -48,11 +48,32 @@ Phases, each fatal on failure:
    each batched kernel once for the whole batch: 950 each and 50 of
    K7-fwd-b, whatever B); B = 8 without jitter: every env equals env 0, and
    env 0 equals `make("Move-v1")` after 5 steps;
-14. device times: each kernel and plain version under torch.profiler, the
-   device's busy share in an rgb env step and a 1-spp frame, and in 5
-   batched env steps at B = 1 and B = 32 with the device operations per
-   batched substep (B = 32 within 1.2x of B = 1: no per-env loop), after
-   everything else (an active profiler slows every later launch).
+14. vec gradient: `build_batched_rollout_grad` on Move-v1 (horizon 50,
+   bench.py's actions tiled over B, `batch_states(..., jitter=1e-3)`) for
+   B = 1, 8 and 32: launch counts (950 of each batched substep backward
+   kernel and 50 of K7-bwd-b per gradient whatever B, the forward's doubled
+   where remat recomputes, no single-env launch), seconds per gradient
+   (warm-up, then best of 3), substeps/s x B, the remat policy and the peak
+   memory; B = 8 without jitter: every env's gradient row equals env 0's
+   and B x row 0 equals `rollout_value_and_grad`'s gradient of the single
+   env; 5 steps at B = 4 through the kernels and through the plain
+   versions (loss and gradient). PyTorch's cache is emptied before each B;
+15. vec backward kernels: the batched backward kernels (K4-b, K7-bwd-b,
+   K6-b, K8-bwd-b) at Move-v1 shapes for B = 8 envs, seeded inputs and
+   cotangents, against the autograd VJP of their batched plain versions;
+   per env against B = 1 launches of the same kernels: K4-b, K7-bwd-b,
+   K6-b's dx and K8-bwd-b (d grid4 and d poses) bit for bit, K6-b's
+   d grid_v within tolerance (atomics); K8-bwd-b once per primitive shape,
+   each env with its own poses and softness; kernel and plain times at
+   B = 8 and B = 32; K1 and K2 timed on the B n particles of the batched
+   path. It comes after the gradient because its plain VJPs keep their
+   autograd graphs for the device times (the memory they hold is logged);
+16. device times: each kernel and plain version under torch.profiler, the
+   device's busy share in an rgb env step and a 1-spp frame, in 5 batched
+   env steps and in a 2-step batched gradient at B = 1 and B = 32 with the
+   device operations per batched substep (B = 32 within 1.2x of B = 1: no
+   per-env loop, forward or backward), after everything else (an active
+   profiler slows every later launch).
 Prints a JSON line of the kernels (`ms` and `plain_ms`: device time per call
 from torch.profiler; for a backward kernel, the plain version's time is that
 of its autograd backward alone; `bound_ms`: the least time of the same work
@@ -187,6 +208,18 @@ VEC_STEPS = 50        # batched env steps per B
 VEC_PARITY_STEPS = 5
 VEC_PROFILE_STEPS = 5
 VEC_LAUNCH_RATIO = 1.2  # device operations per substep, B = 32 over B = 1
+VEC_GRAD_JITTER = 1e-3
+VEC_GRAD_SHORT = (4, 5)       # (B, steps) of the batched kernels-vs-plain gradient
+VEC_GRAD_PROFILE_STEPS = 2    # horizon of the profiled batched gradient
+# B envs without jitter under the same actions, HORIZON steps, all through
+# the kernels: the envs' gradient rows against env 0's, and B x row 0
+# against the single env's trajectory gradient, relative to the largest
+# entry. The runs differ only in the order in which float atomics sum (K3,
+# K6, K7 forward scatter; under remat the recomputed grids differ from the
+# first pass's in the last bits too), which contact amplifies over the 950
+# substeps; the bound is the one 5 steps of kernels vs plain versions are
+# held to.
+VEC_ROW_TOL = {"loss": 1e-4, "grad": 2e-2}
 RENDER_STEPS = 5      # Move-v1 steps before the frame
 RGB_STEPS = 50        # rgb-observation env steps
 SOLVE_ACTION_T = 5    # solve_action's episode length; 2 Adam iterations
@@ -199,14 +232,18 @@ PEAK_F32_S = 67e12
 # multiply, compare, sqrt, exp or log is one; an fma two; index arithmetic
 # not counted): per particle for the stress and transfer kernels, per cell
 # with mass for the grid update, per (particle, offset) update for the
-# voxelizer. Bytes set every bound at Move-v1 shapes: the operations take
-# under half the time of the bytes except for K2 (~0.94 of it).
+# voxelizer. A grid that a kernel only gathers from under its particles
+# (K4, K5, K6, K7 backward) counts by its touched cells (`Gathered`): what
+# this run's data needs, not the whole grid.
 OPS_PER_ITEM = {"stress_affine": 1500, "stress_affine_bwd": 4000, "p2g": 900,
                 "p2g_bwd": 1800, "grid_mass": 150, "grid_mass_bwd": 300, "g2p": 700,
                 "g2p_bwd": 1400, "grid_op": 300, "grid_op_bwd": 1500, "voxelize": 25}
 # the batched kernels do B times the work of the single-env ones
-BATCHED = {"p2g_batched": "p2g", "grid_mass_batched": "grid_mass", "g2p_batched": "g2p",
-           "grid_op_batched": "grid_op"}
+BATCHED_FWD = {"p2g_batched": "p2g", "grid_mass_batched": "grid_mass", "g2p_batched": "g2p",
+               "grid_op_batched": "grid_op"}
+BATCHED_BWD = {"p2g_bwd_batched": "p2g_bwd", "grid_mass_bwd_batched": "grid_mass_bwd",
+               "g2p_bwd_batched": "g2p_bwd", "grid_op_bwd_batched": "grid_op_bwd"}
+BATCHED = {**BATCHED_FWD, **BATCHED_BWD}
 OPS_PER_ITEM.update({k: OPS_PER_ITEM[v] for k, v in BATCHED.items()})
 
 REPLACES = {
@@ -225,6 +262,10 @@ REPLACES = {
     "grid_mass_batched": "plasticinelab_tpu/engine/pallas_local.py:892",
     "grid_op_batched": "plasticinelab_tpu/engine/pallas_gridop.py:234",
     "g2p_batched": "plasticinelab_tpu/engine/pallas_local.py:793",
+    "p2g_bwd_batched": "plasticinelab_tpu/engine/pallas_local.py:780",
+    "grid_mass_bwd_batched": "plasticinelab_tpu/engine/pallas_local.py:904",
+    "grid_op_bwd_batched": "plasticinelab_tpu/engine/pallas_gridop.py:247",
+    "g2p_bwd_batched": "plasticinelab_tpu/engine/pallas_local.py:805",
 }
 SOURCES = {
     "stress_affine": "plasticinelab_tpu_torch/csrc/stress.cu",
@@ -292,17 +333,54 @@ def device_time(fn, reps=KERNEL_REPS, attempts=3):
     return None
 
 
+class Gathered:
+    """An input grid of which a call needs only the cells under its
+    particles' stencils, `share` of all cells (`touched_share`): the gathers
+    of K4, K5, K6 and K7 backward read nothing else of it."""
+
+    def __init__(self, grid, share):
+        self.grid, self.share = grid, share
+
+
+def touched_share(scene, x):
+    """The share of grid cells under the 27-cell stencils of particles x
+    (n, 3) or (B, n, 3): the cells of non-zero mass."""
+    from plasticinelab_tpu_torch.engine import cuda_transfer
+
+    mass = cuda_transfer.grid_mass_plain_batched(scene, x.reshape((-1,) + x.shape[-2:]))
+    return float((mass > 0).double().mean())
+
+
 def bound(name, tensors, items):
     """(bound_ms, bound_by): the least time an H100 needs for a call whose
-    inputs and outputs are `tensors` (each read or written once) and whose
-    work is `items` x OPS_PER_ITEM[name] float32 operations."""
-    t_bytes = sum(t.numel() * t.element_size() for t in tensors) / PEAK_BYTES_S
+    inputs and outputs are `tensors` (each read or written once; of a
+    `Gathered` grid only its share) and whose work is `items` x
+    OPS_PER_ITEM[name] float32 operations."""
+    def nbytes(t):
+        if isinstance(t, Gathered):
+            return t.share * nbytes(t.grid)
+        return t.numel() * t.element_size()
+
+    t_bytes = sum(map(nbytes, tensors)) / PEAK_BYTES_S
     t_ops = items * OPS_PER_ITEM[name] / PEAK_F32_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def as_tuple(out):
     return out if isinstance(out, tuple) else (out,)
+
+
+def record(results, key, name, err, kern, plain, inputs, items):
+    """Times kernel `name` and its plain version (for a backward kernel: the
+    plain version's autograd backward alone) with CUDA events, bounds the
+    call from its inputs and outputs, and keeps both calls under
+    results[key] for the device times."""
+    k_wall, p_wall = wall_time(kern), wall_time(plain)
+    b_ms, b_by = bound(name, list(inputs) + list(as_tuple(kern())), items)
+    results[key] = dict(max_abs_err=err, ms=k_wall, plain_ms=p_wall, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None, calls=(kern, plain))
+    log(f"  {key:28s} wall ms/call: kernel {k_wall:.4f}  plain {p_wall:.4f}  "
+        f"bound {b_ms:.5f} ({b_by})")
 
 
 def compare(name, got, want, tol, flip_budget=0, per_row=False):
@@ -366,6 +444,15 @@ def test_poses(k, seed, center):
             (tensor(pos + r.normal(0, 1e-3, (k, 3))), tensor(rot1), tensor(gap - 1e-4)))
 
 
+def batch_poses(B, k, seed, center):
+    """`test_poses` of B envs, each from its own seed, stacked to a leading B."""
+    import torch
+
+    poses = [test_poses(k, seed + b, center) for b in range(B)]
+    return (tuple(torch.stack([p[0][j] for p in poses]) for j in range(3)),
+            tuple(torch.stack([p[1][j] for p in poses]) for j in range(3)))
+
+
 def random_grid(rng, G):
     """Every cell massive or empty at random, velocities O(1): the walls and
     the three ground regimes of the 50 tasks (friction 0, < 10, >= 10)."""
@@ -397,31 +484,27 @@ def phase_kernels():
     grid_v = t(rng.standard_normal((G ** 3, 3)) * 0.5)
     results = {}
 
-    def record(name, err, kern, plain, inputs, items):
-        k_wall, p_wall = wall_time(kern), wall_time(plain)
-        b_ms, b_by = bound(name, list(inputs) + list(as_tuple(kern())), items)
-        results[name] = dict(max_abs_err=err, ms=k_wall, plain_ms=p_wall, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=None, calls=(kern, plain))
-        log(f"  {name:28s} wall ms/call: kernel {k_wall:.4f}  plain {p_wall:.4f}  "
-            f"bound {b_ms:.5f} ({b_by})")
+    def rec(name, *args):
+        record(results, name, name, *args)
 
     k = lambda: cuda_stress.stress_affine(scene, mats, C, F)  # noqa: E731
     p = lambda: cuda_stress.stress_affine_plain(scene, mats, C, F)  # noqa: E731
-    record("stress_affine", compare("stress_affine", k(), p(), TOL["stress_affine"]), k, p,
+    rec("stress_affine", compare("stress_affine", k(), p(), TOL["stress_affine"]), k, p,
            (C, F), n)
 
     k = lambda: (cuda_transfer.p2g(scene, x, v, aff),)  # noqa: E731
     p = lambda: (cuda_transfer.p2g_plain(scene, x, v, aff),)  # noqa: E731
-    record("p2g", compare("p2g", k(), p(), TOL["p2g"]), k, p, (x, v, aff), n)
+    rec("p2g", compare("p2g", k(), p(), TOL["p2g"]), k, p, (x, v, aff), n)
 
     k = lambda: (cuda_transfer.grid_mass(scene, x),)  # noqa: E731
     p = lambda: (cuda_transfer.grid_mass_plain(scene, x),)  # noqa: E731
-    record("grid_mass", compare("grid_mass (p2g MASS_ONLY)", k(), p(), TOL["grid_mass"]), k, p,
+    rec("grid_mass", compare("grid_mass (p2g MASS_ONLY)", k(), p(), TOL["grid_mass"]), k, p,
            (x,), n)
 
     k = lambda: cuda_transfer.g2p(scene, x, grid_v)  # noqa: E731
     p = lambda: cuda_transfer.g2p_plain(scene, x, grid_v)  # noqa: E731
-    record("g2p", compare("g2p", k(), p(), TOL["g2p"]), k, p, (x, grid_v), n)
+    rec("g2p", compare("g2p", k(), p(), TOL["g2p"]), k, p,
+        (x, Gathered(grid_v, touched_share(scene, x))), n)
 
     # grid update on a realistic grid: P2G of the cloud with O(1) velocities
     grid4 = cuda_transfer.p2g_plain(scene, x, v, sim.p_mass * C)
@@ -445,7 +528,7 @@ def phase_kernels():
     p = lambda: (cuda_gridop.grid_op_plain(scene, grid4, pf, pf1, 666.0),)  # noqa: E731
     err = compare("grid_op[Move-v1: 2 Spheres]", k(), p(), TOL["grid_op"], FLIP_BUDGET)
     massive = int((grid4[:, 3] > 1e-12).sum())
-    record("grid_op", err, k, p, (grid4, *pf, *pf1), massive)
+    rec("grid_op", err, k, p, (grid4, *pf, *pf1), massive)
     return results
 
 
@@ -492,37 +575,34 @@ def phase_backward():
     ct3 = t(rng.standard_normal((G ** 3, 3)))
     results = {}
 
-    def record(name, err, kern, plain_bwd, inputs, items):
-        k_wall, p_wall = wall_time(kern), wall_time(plain_bwd)
-        b_ms, b_by = bound(name, list(inputs) + list(as_tuple(kern())), items)
-        results[name] = dict(max_abs_err=err, ms=k_wall, plain_ms=p_wall, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=None, calls=(kern, plain_bwd))
-        log(f"  {name:28s} wall ms/call: kernel {k_wall:.4f}  plain backward {p_wall:.4f}  "
-            f"bound {b_ms:.5f} ({b_by})")
+    def rec(name, *args):
+        record(results, name, name, *args)
 
     want, p = plain_vjp(lambda c, f: cuda_stress.stress_affine_plain(scene, mats, c, f),
                         [C, F], [ct_nF, ct_aff])
     k = lambda: cuda_stress.stress_affine_bwd(scene, mats, C, F, ct_nF, ct_aff)  # noqa: E731
-    record("stress_affine_bwd", compare("stress_affine_bwd (K2)", k(), want,
+    rec("stress_affine_bwd", compare("stress_affine_bwd (K2)", k(), want,
                                         BWD_TOL["stress_affine_bwd"]), k, p,
            (C, F, ct_nF, ct_aff), n)
 
+    share = touched_share(scene, x)  # of the grids that the gathers read
     want, p = plain_vjp(lambda a, b, c: cuda_transfer.p2g_plain(scene, a, b, c), [x, v, aff],
                         [ct4])
     k = lambda: cuda_transfer.p2g_bwd(scene, x, v, aff, ct4)  # noqa: E731
-    record("p2g_bwd", compare("p2g_bwd (K4)", k(), want, BWD_TOL["p2g_bwd"]), k, p,
-           (x, v, aff, ct4), n)
+    rec("p2g_bwd", compare("p2g_bwd (K4)", k(), want, BWD_TOL["p2g_bwd"]), k, p,
+           (x, v, aff, Gathered(ct4, share)), n)
 
     want, p = plain_vjp(lambda a: cuda_transfer.grid_mass_plain(scene, a), [x], [ctm])
     k = lambda: (cuda_transfer.grid_mass_bwd(scene, x, ctm),)  # noqa: E731
-    record("grid_mass_bwd", compare("grid_mass_bwd (K7 backward)", k(), want,
-                                    BWD_TOL["grid_mass_bwd"]), k, p, (x, ctm), n)
+    rec("grid_mass_bwd", compare("grid_mass_bwd (K7 backward)", k(), want,
+                                    BWD_TOL["grid_mass_bwd"]), k, p,
+        (x, Gathered(ctm, share)), n)
 
     want, p = plain_vjp(lambda a, g: cuda_transfer.g2p_plain(scene, a, g), [x, grid_v],
                         [ct_v, ct_C, ct_x])
     k = lambda: cuda_transfer.g2p_bwd(scene, x, grid_v, ct_v, ct_C, ct_x)  # noqa: E731
-    record("g2p_bwd", compare("g2p_bwd (K6)", k(), want, BWD_TOL["g2p_bwd"]), k, p,
-           (x, grid_v, ct_v, ct_C, ct_x), n)
+    rec("g2p_bwd", compare("g2p_bwd (K6)", k(), want, BWD_TOL["g2p_bwd"]), k, p,
+           (x, Gathered(grid_v, share), ct_v, ct_C, ct_x), n)
 
     def grid_op_check(label, sc, g4, pf, pf1, pose_tol):
         """K8 backward vs the plain VJP: d grid4 rows (flips counted) and
@@ -554,7 +634,7 @@ def phase_backward():
     for gf in (0.0, 1.5, 100.0):
         sc = scene.replace(simulator=dataclasses.replace(sim, ground_friction=gf))
         grid_op_check(f"walls, ground {gf}", sc, grid_rand, pf, pf1, BWD_TOL["grid_op_bwd"])
-    record("grid_op_bwd", *grid_op_check("Move-v1: 2 Spheres", scene, grid4, pf, pf1,
+    rec("grid_op_bwd", *grid_op_check("Move-v1: 2 Spheres", scene, grid4, pf, pf1,
                                          BWD_TOL["grid_op_bwd"]))
     return results
 
@@ -608,7 +688,7 @@ def phase_gradient():
         raise AssertionError("the 2-step gradient disagrees with the reference package")
 
     # (c) the 50-step trajectory gradient at bench.py's actions
-    actions = np.random.default_rng(0).uniform(-1e-4, 1e-4, (HORIZON, scene.action_dim))
+    actions = bench_actions(scene)
     log(f"phase gradient trajectory: {HORIZON} steps x {sub} substeps, through the kernels")
     for mod in mods:
         mod.reset_launches()
@@ -942,22 +1022,27 @@ def phase_render():
 def per_env(name, batched, singles, tol=None):
     """Each env b of a batched call's outputs (tuple, leading B) against
     singles[b], the outputs of a B = 1 launch of the same kernel on env b:
-    bit for bit (tol None), or within tol of the largest value."""
+    bit for bit (tol None), or within tol of the largest value; a tuple
+    gives each output its own tol."""
     import torch
 
+    tols = tol if isinstance(tol, tuple) else (tol,) * len(batched)
     worst = 0.0
     for b, single in enumerate(singles):
-        for g, w in zip(batched, as_tuple(single)):
-            if tol is None:
+        for g, w, t in zip(batched, as_tuple(single), tols):
+            if t is None:
                 if not torch.equal(g[b], w):
                     raise AssertionError(f"{name}: env {b} differs from its B = 1 launch")
                 continue
-            worst = max(worst, float((g[b].double() - w.double()).abs().max())
-                        / (float(w.abs().max()) or 1.0))
-    if tol is not None and not worst <= tol:
-        raise AssertionError(f"{name}: an env differs from its B = 1 launch by {worst:.3e}")
-    log(f"  {name:28s} per env vs {len(singles)} B = 1 launches: "
-        + ("bit for bit" if tol is None else f"max rel {worst:.3e} (tol {tol:.0e})"))
+            rel = float((g[b].double() - w.double()).abs().max()) / (float(w.abs().max()) or 1.0)
+            worst = max(worst, rel)
+            if not rel <= t:
+                raise AssertionError(f"{name}: env {b} differs from its B = 1 launch by "
+                                     f"{rel:.3e} (tol {t:.0e})")
+    exact = sum(t is None for t in tols)
+    log(f"  {name:28s} per env vs {len(singles)} B = 1 launches: {exact} of {len(tols)} outputs "
+        "bit for bit" + ("" if exact == len(tols) else f", the rest max rel {worst:.3e} "
+                         f"(tol {max(t for t in tols if t is not None):.0e})"))
 
 
 def phase_vec_kernels():
@@ -965,8 +1050,6 @@ def phase_vec_kernels():
     of VEC_BATCHES envs, each env's cloud moved by its own noise, each env
     with its own poses and softness; the B = VEC_B run also against B = 1
     launches. The line's entries are the largest B's."""
-    import torch
-
     from plasticinelab_tpu_torch.engine import cuda_gridop, cuda_transfer
 
     scene, x_np = move_scene()
@@ -987,9 +1070,7 @@ def phase_vec_kernels():
         grid_v = tensor(rng.standard_normal((B, G ** 3, 3)) * 0.5)
         # the grid update on realistic grids: P2G of the clouds, O(1) velocities
         grid4 = cuda_transfer.p2g_plain_batched(scene, x, v, sim.p_mass * C)
-        poses = [test_poses(k, 300 + b, center) for b in range(B)]
-        pf = tuple(torch.stack([p[0][j] for p in poses]) for j in range(3))
-        pf1 = tuple(torch.stack([p[1][j] for p in poses]) for j in range(3))
+        pf, pf1 = batch_poses(B, k, 300, center)
         softness = tensor(np.where(np.arange(B) % 2, 333.0, 666.0))
         env = lambda tree, b: tuple(t[b] for t in tree)  # noqa: E731
         calls = {
@@ -1003,7 +1084,8 @@ def phase_vec_kernels():
                 lambda b: cuda_transfer.grid_mass(scene, x[b]), TOL["grid_mass"]),
             "g2p_batched": (
                 lambda: cuda_transfer.g2p_batched(scene, x, grid_v),
-                lambda: cuda_transfer.g2p_plain_batched(scene, x, grid_v), (x, grid_v), B * n,
+                lambda: cuda_transfer.g2p_plain_batched(scene, x, grid_v),
+                (x, Gathered(grid_v, touched_share(scene, x))), B * n,
                 lambda b: cuda_transfer.g2p(scene, x[b], grid_v[b]), None),
             "grid_op_batched": (
                 lambda: (cuda_gridop.grid_op_batched(scene, grid4, pf, pf1, softness),),
@@ -1013,19 +1095,14 @@ def phase_vec_kernels():
                                               float(softness[b])), None),
         }
         for name, (kern, plain, inputs, items, single, env_tol) in calls.items():
-            base = BATCHED[name]
+            base = BATCHED_FWD[name]
             got = as_tuple(kern())
             err = compare(f"{name} [B={B}]", got, as_tuple(plain()), TOL[base],
                           FLIP_BUDGET * B if base == "grid_op" else 0)
             if B == VEC_B:
                 per_env(name, got, [single(b) for b in range(B)], env_tol)
-            k_wall, p_wall = wall_time(kern), wall_time(plain)
-            b_ms, b_by = bound(name, list(inputs) + list(got), items)
-            key = name if B == VEC_BATCHES[-1] else f"{name}[B={B}]"
-            results[key] = dict(max_abs_err=err, ms=k_wall, plain_ms=p_wall, bound_ms=b_ms,
-                                bound_by=b_by, library_ms=None, calls=(kern, plain))
-            log(f"  {key:28s} wall ms/call: kernel {k_wall:.4f}  plain {p_wall:.4f}  "
-                f"bound {b_ms:.5f} ({b_by})")
+            record(results, name if B == VEC_BATCHES[-1] else f"{name}[B={B}]", name, err, kern,
+                   plain, inputs, items)
 
     for B in (VEC_B, VEC_BATCHES[-1]):
         run(B)
@@ -1118,20 +1195,271 @@ def phase_vec():
     return out
 
 
-def vec_profile(ve, steps):
+def phase_vec_backward():
+    """The batched backward kernels at Move-v1 shapes for VEC_B and for the
+    largest of VEC_BATCHES envs, each env's cloud moved by its own noise,
+    each env with its own poses and softness, seeded cotangents: against the
+    autograd VJP of the batched plain versions, and (B = VEC_B) per env
+    against B = 1 launches. The line's entries are the largest B's."""
+    import torch
+
+    from plasticinelab_tpu_torch.config.spec import PrimitiveSpec
+    from plasticinelab_tpu_torch.engine import cuda_gridop, cuda_stress, cuda_transfer
+    from plasticinelab_tpu_torch.engine.state import default_materials
+
+    scene, x_np = move_scene()
+    sim = scene.simulator
+    n, G = len(x_np), sim.n_grid
+    center = x_np.mean(axis=0)
+    mats = default_materials(scene)
+    results = {}
+
+    def grid_op_case(label, sc, B, grid4, ct3, seed, pose_tol, singles):
+        """K8-bwd-b of scene sc against the plain VJP (d grid4 rows with
+        flips counted, and the pose cotangents) and, with `singles`, per env
+        bit for bit against B = 1 launches."""
+        pf, pf1 = batch_poses(B, len(sc.primitives), seed, center)
+        softness = tensor(np.where(np.arange(B) % 2, 333.0, 666.0))
+        want, p = plain_vjp(
+            lambda g, *ps: cuda_gridop.grid_op_plain_batched(sc, g, ps[:3], ps[3:], softness),
+            [grid4, *pf, *pf1], [ct3])
+        want_poses = cuda_gridop.pack_poses(want[1:4], want[4:7])
+        poses = cuda_gridop.pack_poses(pf, pf1).contiguous()
+        k = lambda: cuda_gridop.grid_op_bwd(sc, grid4, poses, softness, ct3)  # noqa: E731
+        dg4, dposes = k()
+        flat = lambda t: t.reshape(-1, t.shape[-1])  # noqa: E731
+        err = compare(f"grid_op_bwd_batched[{label}] d grid4", (flat(dg4),), (flat(want[0]),),
+                      BWD_TOL["grid_op_bwd"], FLIP_BUDGET * B)
+        compare(f"grid_op_bwd_batched[{label}] by row", (flat(dg4),), (flat(want[0]),),
+                BWD_TOL["grid_op_bwd"], FLIP_BUDGET * B, per_row=True)
+        compare(f"grid_op_bwd_batched[{label}] d poses", (flat(dposes),), (flat(want_poses),),
+                pose_tol)
+        for b in range(B):  # every env has its own pose gradient
+            if not float(want_poses[b].abs().max()) > 0:
+                raise AssertionError(f"grid_op_bwd_batched[{label}]: env {b} has no pose gradient")
+        if singles:
+            per_env(f"grid_op_bwd_batched[{label}]", (dg4, dposes),
+                    [cuda_gridop.grid_op_bwd(sc, grid4[b], poses[b], softness[b:b + 1], ct3[b])
+                     for b in range(B)])
+        return err, k, p, (grid4, poses, softness, ct3), int((grid4[..., 3] > 1e-12).sum())
+
+    def run(B):
+        log(f"phase vec backward kernels: Move-v1 shapes, B={B} envs of n={n} particles, "
+            f"G={G} grid, seed {SEED + 7}")
+        rng = np.random.default_rng(SEED + 7)
+        x = tensor(np.clip(x_np + rng.uniform(-0.01, 0.01, (B, n, 3)), 0.0, 0.95))
+        v = tensor(rng.standard_normal((B, n, 3)) * 0.5)
+        C = tensor(rng.standard_normal((B, n, 3, 3)) * 2.0)
+        aff = tensor(rng.standard_normal((B, n, 3, 3)) * 0.3)
+        grid_v = tensor(rng.standard_normal((B, G ** 3, 3)) * 0.5)
+        ct4, ctm = tensor(rng.standard_normal((B, G ** 3, 4))), tensor(rng.standard_normal((B, G ** 3)))
+        ct_v, ct_C, ct_x = (tensor(rng.standard_normal((B, n, 3))),
+                            tensor(rng.standard_normal((B, n, 3, 3))),
+                            tensor(rng.standard_normal((B, n, 3))))
+        ct3 = tensor(rng.standard_normal((B, G ** 3, 3)))
+        first = B == VEC_B
+
+        def rec(name, *args):
+            record(results, name if B == VEC_BATCHES[-1] else f"{name}[B={B}]", name, *args)
+
+        share = touched_share(scene, x)  # of the grids that the gathers read
+        # name -> (kernel, batched plain version, inputs, cotangents, the B = 1
+        # launch on env b, its tolerance per output: None = bit for bit, what
+        # the call must read)
+        transfers = {
+            "p2g_bwd_batched": (
+                lambda: cuda_transfer.p2g_bwd(scene, x, v, aff, ct4),
+                lambda a, b, c: cuda_transfer.p2g_plain_batched(scene, a, b, c), [x, v, aff],
+                [ct4], lambda b: cuda_transfer.p2g_bwd(scene, x[b], v[b], aff[b], ct4[b]), None,
+                (x, v, aff, Gathered(ct4, share))),
+            "grid_mass_bwd_batched": (
+                lambda: (cuda_transfer.grid_mass_bwd(scene, x, ctm),),
+                lambda a: cuda_transfer.grid_mass_plain_batched(scene, a), [x], [ctm],
+                lambda b: cuda_transfer.grid_mass_bwd(scene, x[b], ctm[b]), None,
+                (x, Gathered(ctm, share))),
+            "g2p_bwd_batched": (
+                lambda: cuda_transfer.g2p_bwd(scene, x, grid_v, ct_v, ct_C, ct_x),
+                lambda a, g: cuda_transfer.g2p_plain_batched(scene, a, g), [x, grid_v],
+                [ct_v, ct_C, ct_x],
+                lambda b: cuda_transfer.g2p_bwd(scene, x[b], grid_v[b], ct_v[b], ct_C[b], ct_x[b]),
+                (None, BWD_TOL["g2p_bwd"]), (x, Gathered(grid_v, share), ct_v, ct_C, ct_x)),
+        }
+        for name, (kern, plain, inputs, cts, single, env_tol, read) in transfers.items():
+            want, p = plain_vjp(plain, inputs, cts)
+            got = as_tuple(kern())
+            flat = lambda t: t.reshape((-1,) + t.shape[2:])  # noqa: E731
+            err = compare(f"{name} [B={B}]", tuple(map(flat, got)), tuple(map(flat, want)),
+                          BWD_TOL[BATCHED_BWD[name]])
+            if first:
+                per_env(name, got, [single(b) for b in range(B)], env_tol)
+            rec(name, err, kern, p, read, B * n)
+
+        # K1 and K2 at the batched path's size, the flat B n particles (the
+        # same kernels as the single env's: timed and logged, not in the line)
+        Cf = C.reshape(B * n, 3, 3)
+        Ff = tensor(np.eye(3) + rng.standard_normal((B * n, 3, 3)) * 0.15)
+        cts = [tensor(rng.standard_normal((B * n, 3, 3))) for _ in range(2)]
+        k1 = lambda: cuda_stress.stress_affine(scene, mats, Cf, Ff)  # noqa: E731
+        p1 = lambda: cuda_stress.stress_affine_plain(scene, mats, Cf, Ff)  # noqa: E731
+        record(results, f"stress_affine[n={B * n}]", "stress_affine",
+               compare(f"stress_affine [n={B * n}]", k1(), p1(), TOL["stress_affine"]), k1, p1,
+               (Cf, Ff), B * n)
+        want, p2 = plain_vjp(lambda c, f: cuda_stress.stress_affine_plain(scene, mats, c, f),
+                             [Cf, Ff], cts)
+        k2 = lambda: cuda_stress.stress_affine_bwd(scene, mats, Cf, Ff, *cts)  # noqa: E731
+        record(results, f"stress_affine_bwd[n={B * n}]", "stress_affine_bwd",
+               compare(f"stress_affine_bwd [n={B * n}]", k2(), want,
+                       BWD_TOL["stress_affine_bwd"]), k2, p2, (Cf, Ff, *cts), B * n)
+
+        # the grid update's backward on realistic grids: P2G of the clouds
+        grid4 = cuda_transfer.p2g_plain_batched(scene, x, v, sim.p_mass * C)
+        if first:
+            for i, (shape, kw) in enumerate(SHAPE_PARAMS.items()):
+                sc = scene.replace(primitives=(PrimitiveSpec(shape=shape, friction=0.9, **kw),))
+                grid_op_case(shape, sc, B, grid4, ct3, 400 + 10 * i,
+                             POSE_TOL.get(shape, BWD_TOL["grid_op_bwd"]), True)
+        rec("grid_op_bwd_batched", *grid_op_case(
+            f"Move-v1: 2 Spheres, B={B}", scene, B, grid4, ct3, 500, BWD_TOL["grid_op_bwd"],
+            first))
+
+    for B in (VEC_B, VEC_BATCHES[-1]):
+        run(B)
+        torch.cuda.empty_cache()
+    log(f"  device memory held for the device times (inputs and the plain VJPs' graphs): "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    return results
+
+
+def bench_actions(scene, B=None):
+    """bench.py's actions (HORIZON, action_dim); tiled over B envs with B."""
+    a = np.random.default_rng(0).uniform(-1e-4, 1e-4, (HORIZON, scene.action_dim))
+    return a if B is None else np.tile(a, (B, 1, 1))
+
+
+def phase_vec_gradient():
+    """`build_batched_rollout_grad` on Move-v1 at full width for each B of
+    VEC_BATCHES, then the parity checks."""
+    import torch
+
+    from plasticinelab_tpu_torch.engine import cuda_gridop, cuda_stress, cuda_transfer, mpm
+    from plasticinelab_tpu_torch.engine.sim import rollout_losses_batched
+    from plasticinelab_tpu_torch.envs import make
+    from plasticinelab_tpu_torch.parallel import batch_states, build_batched_rollout_grad
+
+    mods = (cuda_stress, cuda_transfer, cuda_gridop)
+    env = make("Move-v1", device=DEVICE)
+    env.reset()
+    te = env.unwrapped.taichi_env
+    scene, sub = te.scene, te.scene.simulator.substeps
+    step = build_batched_rollout_grad(scene, te.mats, te.loss_state, device=DEVICE)
+    out = {"step": step, "te": te, "seconds": {}}
+    single = ("p2g", "grid_mass", "g2p", "grid_op", "p2g_bwd", "grid_mass_bwd", "g2p_bwd",
+              "grid_op_bwd")
+    for B in VEC_BATCHES:
+        states = batch_states(te.state, B, jitter=VEC_GRAD_JITTER, seed=SEED)
+        actions = bench_actions(scene, B)
+        for mod in mods:
+            mod.reset_launches()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, grad = step(states, actions, te.softness)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        launches = {k: v for mod in mods for k, v in mod.launches.items()}
+        peak = torch.cuda.max_memory_allocated()
+        remat = step.last_remat
+        log(f"phase vec gradient: build_batched_rollout_grad, Move-v1, B={B}, {HORIZON} steps x "
+            f"{sub} substeps, jitter {VEC_GRAD_JITTER}, remat {remat}; launches {launches}")
+        fwd = HORIZON * (2 if remat == "env_step" else 1)  # the recomputed forward
+        expected = {"stress_affine": fwd * sub, "p2g_batched": fwd * sub,
+                    "grid_op_batched": fwd * sub, "g2p_batched": fwd * sub,
+                    "grid_mass_batched": fwd, "stress_affine_bwd": HORIZON * sub,
+                    "p2g_bwd_batched": HORIZON * sub, "grid_op_bwd_batched": HORIZON * sub,
+                    "g2p_bwd_batched": HORIZON * sub, "grid_mass_bwd_batched": HORIZON}
+        expected.update({k: 0 for k in single})
+        for key, want in expected.items():
+            if launches[key] != want:
+                raise AssertionError(f"B={B}: {key} ran {launches[key]} times, expected {want}")
+        g = grad.double()
+        if not (grad.shape == (B, HORIZON, scene.action_dim) and torch.isfinite(loss)
+                and torch.isfinite(g).all() and float(g.abs().max()) > 0):
+            raise AssertionError(f"B={B}: the batched gradient is not finite and non-zero")
+        if B > 1 and bool((g[1:] == g[:1]).all()):
+            raise AssertionError(f"B={B}: jittered envs gave identical gradient rows")
+        times = []
+        for _ in range(TRAJ_RUNS):
+            t0 = time.perf_counter()
+            step(states, actions, te.softness)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        best = min(times)
+        log(f"  mean loss {float(loss):.9g}  |grad| max {float(g.abs().max()):.6e}; seconds per "
+            f"batched gradient: best {best:.4f}, runs {[round(x, 4) for x in times]} (first, "
+            f"with warm-up, {first:.4f}); substeps/s x B fwd+bwd {B * HORIZON * sub / best:.1f}; "
+            f"peak device memory {(peak - base) / 2**30:.3f} GiB above {base / 2**30:.3f} GiB at "
+            f"start ({(peak - base) / (B * HORIZON * sub) / 2**20:.3f} MiB per env substep; "
+            f"resolve_remat assumes {mpm.substep_bytes(scene) / 2**20:.3f} under 'none')")
+        out["launches"], out["seconds"][B] = launches, best
+        del states, loss, grad, g
+
+    # parity: VEC_B envs without jitter, and the single env, same actions
+    torch.cuda.empty_cache()
+    states = batch_states(te.state, VEC_B, jitter=0.0)
+    loss, grad = step(states, bench_actions(scene, VEC_B), te.softness)
+    loss1, grad1, _ = te.rollout_value_and_grad(te.state, bench_actions(scene), te.softness)
+    grad, grad1 = grad.double(), grad1.double()
+    scale = float(grad1.abs().max())
+    rows = float((grad - grad[:1]).abs().max()) * VEC_B / scale
+    first_row = float((grad[0] * VEC_B - grad1).abs().max()) / scale
+    rel_l = abs(float(loss) - float(loss1)) / abs(float(loss1))
+    log(f"phase vec gradient parity: B={VEC_B} without jitter (remat {step.last_remat}), "
+        f"{HORIZON} steps: every row vs row 0 max rel {rows:.3e}; B x row 0 vs the single env's "
+        f"gradient (remat {te.last_remat}) max rel {first_row:.3e} (bound "
+        f"{VEC_ROW_TOL['grad']:.0e}); mean loss {float(loss):.9g} vs {float(loss1):.9g} rel "
+        f"{rel_l:.3e} (bound {VEC_ROW_TOL['loss']:.0e})")
+    if not (rows <= VEC_ROW_TOL["grad"] and first_row <= VEC_ROW_TOL["grad"]
+            and rel_l <= VEC_ROW_TOL["loss"]):
+        raise AssertionError("the batched gradient differs from the single env's")
+    del states, grad, grad1
+
+    # kernels vs plain versions on a short horizon
+    Bs, T = VEC_GRAD_SHORT
+    states = batch_states(te.state, Bs, jitter=VEC_GRAD_JITTER, seed=SEED + 8)
+    acts = tensor(np.random.default_rng(SEED + 9).uniform(-1, 1, (Bs, T, scene.action_dim)))
+    res = {}
+    for name, ops, remat in (("kernels", mpm.KERNEL_OPS_BATCHED, "none"),
+                             ("plain", mpm.PLAIN_OPS_BATCHED, "env_step")):
+        a = acts.clone().requires_grad_(True)
+        rows_, _ = rollout_losses_batched(scene, te.mats, te.loss_state, states, a, te.softness,
+                                          remat, ops)
+        total = rows_.sum(dim=0).mean()
+        (g,) = torch.autograd.grad(total, a)
+        res[name] = (float(total.detach()), g.double())
+    (lk, gk), (lp, gp) = res["kernels"], res["plain"]
+    rel_l = abs(lk - lp) / abs(lp)
+    rel_g = float((gk - gp).abs().max() / gp.abs().max())
+    log(f"phase vec gradient kernels vs plain: B={Bs}, {T} steps: mean loss {lk:.9g} vs "
+        f"{lp:.9g} rel {rel_l:.3e} (bound {GRAD_TOL['loss']:.0e}); d/d actions max |grad| "
+        f"{float(gp.abs().max()):.4e} max diff rel {rel_g:.3e} (bound {GRAD_TOL['grad']:.0e})")
+    if not (torch.isfinite(gk).all() and rel_l <= GRAD_TOL["loss"] and rel_g <= GRAD_TOL["grad"]):
+        raise AssertionError("batched kernel and plain trajectory gradients disagree")
+    torch.cuda.empty_cache()
+    return out
+
+
+def vec_profile(work):
     """Device busy ms, wall ms, busy share and device operations (kernels,
-    memsets, copies) per call of `steps` batched env steps of zero actions,
-    and the runtime's launch, copy and synchronise calls torch.profiler
-    saw."""
+    memsets, copies) of one call of work(), and the runtime's launch, copy
+    and synchronise calls torch.profiler saw."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    a = np.zeros((ve.batch, ve.action_dim))
-
     def run():
-        for _ in range(steps):
-            ve.step(a)
+        work()
         torch.cuda.synchronize()
 
     run()
@@ -1208,7 +1536,10 @@ def main():
     launches["voxelize"] = render["voxelize_launches"]
     results.update(phase_vec_kernels())
     vec = phase_vec()
-    launches.update({k: vec["launches"][k] for k in BATCHED})
+    launches.update({k: vec["launches"][k] for k in BATCHED_FWD})
+    vgrad = phase_vec_gradient()
+    results.update(phase_vec_backward())
+    launches.update({k: vgrad["launches"][k] for k in BATCHED_BWD})
     # after the slice: an active profiler slows every later launch
     log("phase device times (torch.profiler, ms per call)")
     for k, r in results.items():
@@ -1229,7 +1560,9 @@ def main():
     per_substep = {}
     for B in (VEC_BATCHES[0], VEC_BATCHES[-1]):
         ve = vec["envs"][B]
-        busy, wall, share, ops, calls = vec_profile(ve, VEC_PROFILE_STEPS)
+        zeros = np.zeros((ve.batch, ve.action_dim))
+        busy, wall, share, ops, calls = vec_profile(
+            lambda: [ve.step(zeros) for _ in range(VEC_PROFILE_STEPS)])
         n_sub = VEC_PROFILE_STEPS * ve.scene.simulator.substeps
         per_substep[B] = ops / n_sub
         log(f"  {VEC_PROFILE_STEPS} batched env steps, B={B}: device busy {busy:.3f} ms of "
@@ -1242,6 +1575,25 @@ def main():
         f"{ratio:.3f} (bound {VEC_LAUNCH_RATIO})")
     if not (per_substep[VEC_BATCHES[0]] > 0 and ratio <= VEC_LAUNCH_RATIO):
         raise AssertionError("the batched step's launches grow with B")
+    from plasticinelab_tpu_torch.parallel import batch_states
+
+    te, n_sub = vgrad["te"], VEC_GRAD_PROFILE_STEPS * vgrad["te"].scene.simulator.substeps
+    for B in (VEC_BATCHES[0], VEC_BATCHES[-1]):
+        states = batch_states(te.state, B, jitter=VEC_GRAD_JITTER, seed=SEED)
+        actions = bench_actions(te.scene, B)[:, :VEC_GRAD_PROFILE_STEPS]
+        busy, wall, share, ops, calls = vec_profile(
+            lambda: vgrad["step"](states, actions, te.softness))
+        per_substep[B] = ops / n_sub
+        log(f"  {VEC_GRAD_PROFILE_STEPS}-step batched gradient, B={B} (remat "
+            f"{vgrad['step'].last_remat}): device busy {busy:.3f} ms of {wall:.3f} ms wall, "
+            f"busy share {share:.4f}; per substep fwd+bwd: device operations {ops / n_sub:.2f}, "
+            "runtime calls " + ", ".join(f"{k} {v / n_sub:.2f}" for k, v in calls.items())
+            + f"; {HORIZON}-step gradient {vgrad['seconds'][B]:.4f} s (unprofiled run)")
+    ratio = per_substep[VEC_BATCHES[-1]] / per_substep[VEC_BATCHES[0]]
+    log(f"  device operations per gradient substep, B={VEC_BATCHES[-1]} over "
+        f"B={VEC_BATCHES[0]}: {ratio:.3f} (bound {VEC_LAUNCH_RATIO})")
+    if not (per_substep[VEC_BATCHES[0]] > 0 and ratio <= VEC_LAUNCH_RATIO):
+        raise AssertionError("the batched gradient's launches grow with B")
 
     kernels = [dict(name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
                     launches=launches[k], **results[k]) for k in REPLACES]

@@ -19,18 +19,21 @@
 //   tangents; the quaternion and position chain rule is written out. The
 //   pose cotangents are reduced deterministically: per-block sums (blocks
 //   with no contact write zeros without reducing), then one block per
-//   primitive sums the block partials in a fixed order.
+//   (primitive, env) sums that env's block partials in a fixed order.
 //
 // grid4 (G^3, 4) [mom x, y, z, mass]; poses (k, 16) rows [pos_f 3, rot_f 4,
 // gap_f, pos_f1 3, rot_f1 4, gap_f1]; out (G^3, 3). The pass reads 16 B and
 // writes 12 B per cell, a few MB that stay in L2; the cost is the SDF,
 // normal and contact arithmetic per primitive, in a thin shell around each.
 //
-// The forward takes B envs: one thread per (env, cell) of grid4 (B, G^3, 4),
-// each env with its own poses row block (B, k, 16) and its own softness from
-// a (B,) device tensor. It also replaces the batched grid of the same TPU
-// kernel (pallas_gridop.py:205 grid_op_fns_batched, K8-fwd-b :234); one env
-// is B = 1. The backward takes one env and its softness as a scalar.
+// Both directions take B envs, grid4 (B, G^3, 4), each env with its own
+// poses row block (B, k, 16) and its own softness from a (B,) device tensor;
+// one env is B = 1. The forward runs one thread per (env, cell) of the flat
+// grids. The backward launches a 2-D grid (blocks of one env's cells, env),
+// so no block holds cells of two envs and each env's pose cotangents are
+// summed in the order a B = 1 launch sums them. They also replace the
+// batched grids of the same TPU kernels (pallas_gridop.py:205
+// grid_op_fns_batched, K8-fwd-b :234 and K8-bwd-b :247).
 #include "common.cuh"
 
 #define PLB_MAX_PRIMS 8
@@ -758,8 +761,8 @@ __device__ __forceinline__ void block_sum(const float (&x)[kPG], float (*smem)[k
 }
 
 // Writes the block's sum of each primitive's pose cotangents to its row of
-// partials (nblocks, k, kPG); a block where no cell touches the primitive
-// writes zeros without reducing.
+// its env's partials (nblocks, k, kPG); a block where no cell touches the
+// primitive writes zeros without reducing.
 struct BlockSink {
   float* partials;
   float (*smem)[kPG];
@@ -776,14 +779,21 @@ struct BlockSink {
   }
 };
 
+// Grid (blocks_for(G^3), B): block (x, env) holds cells of env alone;
+// partials is (B, nblocks, k, kPG).
 __global__ void grid_op_bwd_kernel(const float* __restrict__ grid4,
-                                   const float* __restrict__ poses, const float* __restrict__ ct,
-                                   float* __restrict__ dgrid4, float* __restrict__ partials,
-                                   PrimTable table, GridConsts k, float softness) {
+                                   const float* __restrict__ poses,
+                                   const float* __restrict__ softness,
+                                   const float* __restrict__ ct, float* __restrict__ dgrid4,
+                                   float* __restrict__ partials, PrimTable table, GridConsts k) {
   __shared__ float smem[plb::kThreads / 32][kPG];
-  BlockSink sink{partials, smem, table.k};
+  const long long GG = k.G;
+  const long long cells = GG * GG * GG;
+  const long long env = blockIdx.y;
+  BlockSink sink{partials + env * gridDim.x * table.k * kPG, smem, table.k};
   const long long cell = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  cell_bwd(grid4, poses, ct, dgrid4, table, k, softness, cell, sink);
+  cell_bwd(grid4 + env * cells * 4, poses + env * table.k * 16, ct + env * cells * 3,
+           dgrid4 + env * cells * 4, table, k, softness[env], cell, sink);
 }
 
 // One primitive's (16,) pose cotangent row from its summed kPG components:
@@ -810,14 +820,19 @@ __device__ __forceinline__ void pose_row(const float* tot, const float* q, float
   out[15] = 0.0f;  // gap_f1 does not enter the grid update
 }
 
-// One block per primitive: sums the per-block partials in a fixed order and
-// writes the (k, 16) pose cotangent rows.
+// Grid (k, B), one block per (primitive, env): sums the env's per-block
+// partials in a fixed order and writes its row of the (B, k, 16) pose
+// cotangents.
 __global__ void grid_op_pose_reduce_kernel(const float* __restrict__ partials,
                                            const float* __restrict__ poses,
                                            float* __restrict__ dposes, int nblocks, int k) {
   __shared__ float smem[plb::kThreads / 32][kPG];
   __shared__ float tot[kPG];
   const int i = blockIdx.x;
+  const long long env = blockIdx.y;
+  partials += env * nblocks * k * kPG;
+  poses += env * k * 16;
+  dposes += env * k * 16;
   float acc[kPG];
 #pragma unroll
   for (int j = 0; j < kPG; ++j) acc[j] = 0.0f;
@@ -854,25 +869,25 @@ extern "C" int plb_grid_op(const float* grid4, const float* poses, const float* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// partials: scratch of blocks_for(G^3) x k x 19 floats
-extern "C" int plb_grid_op_bwd(const float* grid4, const float* poses, const float* ct,
-                               float* dgrid4, float* dposes, float* partials, PrimTable table,
-                               int G, float dx, float dt, float softness, float g30x, float g30y,
-                               float g30z, float ground_friction, float vmax, int device,
-                               void* stream) {
+// partials: scratch of B x blocks_for(G^3) x k x 19 floats
+extern "C" int plb_grid_op_bwd(const float* grid4, const float* poses, const float* softness,
+                               const float* ct, float* dgrid4, float* dposes, float* partials,
+                               PrimTable table, int B, int G, float dx, float dt, float g30x,
+                               float g30y, float g30z, float ground_friction, float vmax,
+                               int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (table.k < 0 || table.k > PLB_MAX_PRIMS) return static_cast<int>(cudaErrorInvalidValue);
   const long long cells = static_cast<long long>(G) * G * G;
-  if (cells <= 0) return static_cast<int>(cudaGetLastError());
+  if (cells <= 0 || B <= 0) return static_cast<int>(cudaGetLastError());
   const GridConsts k = {G, dx, dt, {g30x, g30y, g30z}, ground_friction, vmax};
   const unsigned int nblocks = plb::blocks_for(cells);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  grid_op_bwd_kernel<<<nblocks, plb::kThreads, 0, s>>>(grid4, poses, ct, dgrid4, partials, table,
-                                                       k, softness);
+  grid_op_bwd_kernel<<<dim3(nblocks, B), plb::kThreads, 0, s>>>(grid4, poses, softness, ct,
+                                                                dgrid4, partials, table, k);
   err = cudaGetLastError();
   if (err != cudaSuccess || table.k == 0) return static_cast<int>(err);
-  grid_op_pose_reduce_kernel<<<table.k, plb::kThreads, 0, s>>>(partials, poses, dposes,
-                                                               static_cast<int>(nblocks), table.k);
+  grid_op_pose_reduce_kernel<<<dim3(table.k, B), plb::kThreads, 0, s>>>(
+      partials, poses, dposes, static_cast<int>(nblocks), table.k);
   return static_cast<int>(cudaGetLastError());
 }

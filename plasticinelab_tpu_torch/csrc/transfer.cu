@@ -24,12 +24,12 @@
 // [0, G-3], weights from the unclamped fraction, dpos = cell - px in grid
 // units. Flat cell index (i * G + j) * G + k, in 64 bits.
 //
-// The forward kernels (p2g_kernel, g2p_kernel) take a batch of B envs of n
-// particles each, env-major: particle p belongs to env p / n and scatters
-// into, or gathers from, that env's grid at grid + env G^3 C. They replace
-// the batched grids of the same TPU kernels too (pallas_local.py:725
-// transfer_fns_batched, K3-b :767 and K5-b :793; :865 mass_fns_batched,
-// K7-fwd-b :892). One env is B = 1. The backward kernels take one env.
+// Every kernel takes a batch of B envs of n particles each, env-major:
+// particle p belongs to env p / n and scatters into, or gathers from, that
+// env's grid at grid + env G^3 C. They replace the batched grids of the same
+// TPU kernels too (pallas_local.py:725 transfer_fns_batched: K3-b :767,
+// K4-b :780, K5-b :793, K6-b :805; :865 mass_fns_batched: K7-fwd-b :892,
+// K7-bwd-b :904). One env is B = 1.
 #include "common.cuh"
 
 namespace {
@@ -155,10 +155,11 @@ template <bool MASS_ONLY>
 __global__ void p2g_bwd_kernel(const float* __restrict__ x, const float* __restrict__ v,
                                const float* __restrict__ aff, const float* __restrict__ ct,
                                float* __restrict__ gx, float* __restrict__ gv,
-                               float* __restrict__ gaff, long long n, int G, float inv_dx,
-                               float dx, float p_mass) {
+                               float* __restrict__ gaff, long long n, long long total, int G,
+                               float inv_dx, float dx, float p_mass) {
   const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= n) return;
+  if (p >= total) return;
+  ct += env_grid(p, n, G, MASS_ONLY ? 1 : 4);
   const Stencil s = make_stencil(x, p, G, inv_dx);
   float vp[3] = {0.0f, 0.0f, 0.0f}, A[3][3] = {};
   if (!MASS_ONLY) {
@@ -223,10 +224,12 @@ __global__ void p2g_bwd_kernel(const float* __restrict__ x, const float* __restr
 __global__ void g2p_bwd_kernel(const float* __restrict__ x, const float* __restrict__ grid_v,
                                const float* __restrict__ ct_v, const float* __restrict__ ct_C,
                                const float* __restrict__ ct_x, float* __restrict__ gx,
-                               float* __restrict__ g_grid, long long n, int G, float inv_dx,
-                               float dt, float x_hi) {
+                               float* __restrict__ g_grid, long long n, long long total, int G,
+                               float inv_dx, float dt, float x_hi) {
   const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= n) return;
+  if (p >= total) return;
+  grid_v += env_grid(p, n, G, 3);
+  g_grid += env_grid(p, n, G, 3);
   const Stencil s = make_stencil(x, p, G, inv_dx);
   const long long GG = G;
   // the forward velocity, for the advection mask
@@ -286,8 +289,8 @@ __global__ void g2p_bwd_kernel(const float* __restrict__ x, const float* __restr
 
 }  // namespace
 
-// The forward entry points take B envs of n particles each (x (B, n, 3),
-// grids (B, G^3, C)); one env is B = 1.
+// Every entry point takes B envs of n particles each (x (B, n, 3), grids and
+// their cotangents (B, G^3, C)); one env is B = 1.
 extern "C" int plb_p2g(const float* x, const float* v, const float* affine, float* grid4,
                        long long n, int B, int G, float inv_dx, float dx, float p_mass,
                        int device, void* stream) {
@@ -329,40 +332,46 @@ extern "C" int plb_g2p(const float* x, const float* grid_v, float* new_v, float*
 }
 
 extern "C" int plb_p2g_bwd(const float* x, const float* v, const float* affine, const float* ct,
-                           float* gx, float* gv, float* gaffine, long long n, int G, float inv_dx,
-                           float dx, float p_mass, int device, void* stream) {
+                           float* gx, float* gv, float* gaffine, long long n, int B, int G,
+                           float inv_dx, float dx, float p_mass, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
-    p2g_bwd_kernel<false><<<plb::blocks_for(n), plb::kThreads, 0,
+  const long long total = n * B;
+  if (total > 0) {
+    p2g_bwd_kernel<false><<<plb::blocks_for(total), plb::kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(x, v, affine, ct, gx, gv,
-                                                                 gaffine, n, G, inv_dx, dx, p_mass);
+                                                                 gaffine, n, total, G, inv_dx, dx,
+                                                                 p_mass);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int plb_grid_mass_bwd(const float* x, const float* ct, float* gx, long long n, int G,
-                                 float inv_dx, float p_mass, int device, void* stream) {
+extern "C" int plb_grid_mass_bwd(const float* x, const float* ct, float* gx, long long n, int B,
+                                 int G, float inv_dx, float p_mass, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
-    p2g_bwd_kernel<true><<<plb::blocks_for(n), plb::kThreads, 0,
+  const long long total = n * B;
+  if (total > 0) {
+    p2g_bwd_kernel<true><<<plb::blocks_for(total), plb::kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(x, nullptr, nullptr, ct, gx,
-                                                                nullptr, nullptr, n, G, inv_dx,
-                                                                0.0f, p_mass);
+                                                                nullptr, nullptr, n, total, G,
+                                                                inv_dx, 0.0f, p_mass);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// g_grid (B, G^3, 3) comes in zeroed
 extern "C" int plb_g2p_bwd(const float* x, const float* grid_v, const float* ct_v,
                            const float* ct_C, const float* ct_x, float* gx, float* g_grid,
-                           long long n, int G, float inv_dx, float dt, float x_hi, int device,
-                           void* stream) {
+                           long long n, int B, int G, float inv_dx, float dt, float x_hi,
+                           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
-    g2p_bwd_kernel<<<plb::blocks_for(n), plb::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        x, grid_v, ct_v, ct_C, ct_x, gx, g_grid, n, G, inv_dx, dt, x_hi);
+  const long long total = n * B;
+  if (total > 0) {
+    g2p_bwd_kernel<<<plb::blocks_for(total), plb::kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(x, grid_v, ct_v, ct_C, ct_x, gx, g_grid,
+                                                          n, total, G, inv_dx, dt, x_hi);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -54,8 +54,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # C, F, newF, affine, n, dt, mu, lam, yield_stress, coeff, p_mass, device, stream
     "plb_stress_affine": [_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _I, _P],
-    # the forward transfers and the grid update take B envs (n particles
-    # each); one env is B = 1
+    # the transfers and the grid update, forward and backward, take B envs
+    # (n particles each); one env is B = 1
     # x, v, affine, grid4, n, B, G, inv_dx, dx, p_mass, device, stream
     "plb_p2g": [_P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _I, _P],
     # x, grid_m, n, B, G, inv_dx, p_mass, device, stream
@@ -70,16 +70,17 @@ _SIGNATURES = {
     # p_mass, gap_mode, gap_eps, device, stream
     "plb_stress_affine_bwd": [_P, _P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F,
                               _I, _F, _I, _P],
-    # x, v, affine, ct, gx, gv, gaffine, n, G, inv_dx, dx, p_mass, device, stream
-    "plb_p2g_bwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _I, _P],
-    # x, ct, gx, n, G, inv_dx, p_mass, device, stream
-    "plb_grid_mass_bwd": [_P, _P, _P, _L, _I, _F, _F, _I, _P],
-    # x, grid_v, ct_v, ct_C, ct_x, gx, g_grid, n, G, inv_dx, dt, x_hi, device,
+    # x, v, affine, ct, gx, gv, gaffine, n, B, G, inv_dx, dx, p_mass, device,
     # stream
-    "plb_g2p_bwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _I, _P],
-    # grid4, poses, ct, dgrid4, dposes, partials, table, G, dx, dt, softness,
-    # gravity xyz, ground_friction, vmax, device, stream
-    "plb_grid_op_bwd": [_P, _P, _P, _P, _P, _P, PrimTable, _I, _F, _F, _F, _F, _F,
+    "plb_p2g_bwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _I, _P],
+    # x, ct, gx, n, B, G, inv_dx, p_mass, device, stream
+    "plb_grid_mass_bwd": [_P, _P, _P, _L, _I, _I, _F, _F, _I, _P],
+    # x, grid_v, ct_v, ct_C, ct_x, gx, g_grid, n, B, G, inv_dx, dt, x_hi,
+    # device, stream
+    "plb_g2p_bwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _I, _P],
+    # grid4, poses, softness (B,), ct, dgrid4, dposes, partials, table, B, G,
+    # dx, dt, gravity xyz, ground_friction, vmax, device, stream
+    "plb_grid_op_bwd": [_P, _P, _P, _P, _P, _P, _P, PrimTable, _I, _I, _F, _F, _F, _F,
                         _F, _F, _F, _I, _P],
     # p, color, offs, vol, n, m, rx, ry, rz, scale, device, stream
     "plb_voxelize": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _I, _P],
@@ -181,14 +182,11 @@ def require(t: torch.Tensor, name: str, shape, device: torch.device) -> None:
         raise ValueError(f"{name}: expected device {device}, got {t.device}")
 
 
-def require_no_grad(name: str, *tensors: torch.Tensor) -> None:
-    """The batched wrappers are forward only: raise rather than let autograd
-    differentiate their plain versions."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name} is forward only: the batched gradient (build_batched_rollout_grad "
-            "with K4-b, K6-b, K7-bwd-b and K8-bwd-b) is ROADMAP item A12's next part, "
-            "not ported yet")
+def launch_key(name: str, t: torch.Tensor) -> str:
+    """The key under which a wrapper counts a launch of kernel `name` on
+    particles (n, 3) or a grid (G^3, C) `t`: with a leading B (any B) it
+    counts under `<name>_batched`, apart from the single env's."""
+    return name + "_batched" if t.dim() == 3 else name
 
 
 def require_kernel_input(t: torch.Tensor, name: str) -> None:

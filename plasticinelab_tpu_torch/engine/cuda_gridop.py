@@ -27,12 +27,17 @@ pose_f1 and on through the forward kinematics to the actions. The pose
 cotangents are summed over cells per block, then over blocks in a fixed
 order by a second small kernel: deterministic, no contended atomics.
 
-The forward kernel takes a batch of envs: one thread per (env, cell) of a
-(B, G^3, 4) grid, each env with its own (k, 16) poses and its own softness
-from a (B,) device tensor. So it also replaces the batched grid of K8
-forward (`pallas_gridop.py:205` `grid_op_fns_batched`, `:234`):
-`grid_op_batched` launches it over B envs (forward only), `grid_op` with
-B = 1. The backward takes one env.
+Both kernels take a batch of envs, a (B, G^3, 4) grid, each env with its
+own (k, 16) poses and its own softness from a (B,) device tensor (one env:
+a cached (1,) tensor). The forward runs one thread per (env, cell); the
+backward launches a 2-D grid (blocks of one env's cells, env) with partial
+sums (B, nblocks, k, 19) and reduces with a grid of (k, B) blocks, so no
+sum mixes envs and each env's result is bit for bit what a B = 1 launch
+gives. So they also replace the batched grids of K8 (`pallas_gridop.py:205`
+`grid_op_fns_batched`, forward `:234`, backward `:247`): `grid_op_batched`
+launches them over B envs, `grid_op` with B = 1, through the same autograd
+Function `GridOp`, which returns no gradient for softness. A launch over a
+leading B counts under `<name>_batched`, whatever B.
 
 The wrapper takes the plain version only for a CPU tensor; for a CUDA
 tensor it launches the kernel (float32, contiguous) or raises, and so does
@@ -48,7 +53,7 @@ from ..config.spec import SceneSpec
 from . import cuda_build as cb
 from . import primitives as prim
 
-launches = {"grid_op": 0, "grid_op_bwd": 0, "grid_op_batched": 0}
+launches = {"grid_op": 0, "grid_op_bwd": 0, "grid_op_batched": 0, "grid_op_bwd_batched": 0}
 
 SHAPE_IDS = {"Sphere": 0, "Capsule": 1, "RollingPin": 1, "Chopsticks": 2,
              "Cylinder": 3, "Torus": 4, "Box": 5}
@@ -118,11 +123,12 @@ def grid_op_plain(scene: SceneSpec, grid4, pose_f, pose_f1, softness):
 
 def grid_op_plain_batched(scene: SceneSpec, grid4, pose_f, pose_f1, softness):
     """`grid_op_plain` of B envs: grid4 (B, G^3, 4), poses with a leading B,
-    softness (B,) -> (B, G^3, 3), env by env."""
+    softness (B,) -> (B, G^3, 3), env by env; differentiable in grid4 and the
+    poses of every env."""
     return torch.stack([
         grid_op_plain(scene, grid4[b], tuple(t[b] for t in pose_f),
-                      tuple(t[b] for t in pose_f1), s)
-        for b, s in enumerate(softness.tolist())])
+                      tuple(t[b] for t in pose_f1), softness[b])
+        for b in range(grid4.shape[0])])
 
 
 @functools.lru_cache(maxsize=None)
@@ -171,89 +177,106 @@ def _check_packed(scene: SceneSpec, grid4, poses, lead=()):
     cb.require_kernel_input(poses, "poses")
 
 
-def _launch_fwd(scene: SceneSpec, grid4, poses, softness, name: str = "grid_op"):
-    """K8 forward over one env (grid4 (G^3, 4), poses (k, 16), softness
-    (1,)) or B envs (grid4 (B, G^3, 4), poses (B, k, 16), softness (B,))."""
+def _check_launch(scene: SceneSpec, grid4, poses, softness) -> int:
+    """Checks one env's (grid4 (G^3, 4), poses (k, 16), softness (1,)) or B
+    envs' (grid4 (B, G^3, 4), poses (B, k, 16), softness (B,)) kernel
+    inputs; -> B."""
+    if grid4.dim() not in (2, 3):
+        raise ValueError(f"grid4: expected (G^3, 4) or (B, G^3, 4), got {tuple(grid4.shape)}")
     lead = tuple(grid4.shape[:-2])
-    B = grid4.shape[0] if lead else 1
+    B = lead[0] if lead else 1
     _check_packed(scene, grid4, poses, lead)
     cb.require(softness, "softness", (B,), grid4.device)
     cb.require_kernel_input(softness, "softness")
+    return B
+
+
+def _launch_fwd(scene: SceneSpec, grid4, poses, softness):
+    """K8 forward over one env or B envs (`_check_launch`)."""
+    B = _check_launch(scene, grid4, poses, softness)
     out = torch.empty(grid4.shape[:-1] + (3,), device=grid4.device, dtype=torch.float32)
     err = cb.library().plb_grid_op(
         grid4.data_ptr(), poses.data_ptr(), softness.data_ptr(), out.data_ptr(),
         prim_table(scene.primitives), B, *_consts(scene), grid4.device.index,
         cb.stream_of(grid4))
+    name = cb.launch_key("grid_op", grid4)
     cb.check(err, name)
     launches[name] += 1
     return out
 
 
-def grid_op_bwd(scene: SceneSpec, grid4, poses, softness: float, ct):
+def grid_op_bwd(scene: SceneSpec, grid4, poses, softness, ct):
     """The K8 backward kernels: grid velocity cotangent (G^3, 3) -> (d grid4
     (G^3, 4), d poses (k, 16)), the VJP of `grid_op_plain` through
-    `pack_poses`. CUDA tensors only."""
-    _check_packed(scene, grid4, poses)
-    cb.require(ct, "ct", (grid4.shape[0], 3), grid4.device)
+    `pack_poses`; with a leading B on every tensor, of
+    `grid_op_plain_batched`, in one launch of each kernel. softness: a (B,)
+    tensor on the device ((1,) for one env, or then a number). CUDA tensors
+    only."""
+    if not torch.is_tensor(softness):
+        softness = _softness_tensor(float(softness), grid4.device)
+    B = _check_launch(scene, grid4, poses, softness)
+    cb.require(ct, "ct", grid4.shape[:-1] + (3,), grid4.device)
     cb.require_kernel_input(ct, "ct")
     k = len(scene.primitives)
-    nblocks = (grid4.shape[0] + cb.THREADS - 1) // cb.THREADS
+    nblocks = (grid4.shape[-2] + cb.THREADS - 1) // cb.THREADS
     dgrid4 = torch.empty_like(grid4)
     dposes = torch.empty_like(poses)
-    partials = torch.empty((nblocks, k, 19), device=grid4.device, dtype=torch.float32)
-    G, dx, dt, *rest = _consts(scene)
+    partials = torch.empty((B, nblocks, k, 19), device=grid4.device, dtype=torch.float32)
     err = cb.library().plb_grid_op_bwd(
-        grid4.data_ptr(), poses.data_ptr(), ct.data_ptr(), dgrid4.data_ptr(),
-        dposes.data_ptr(), partials.data_ptr(), prim_table(scene.primitives),
-        G, dx, dt, float(softness), *rest, grid4.device.index, cb.stream_of(grid4))
-    cb.check(err, "grid_op_bwd")
-    launches["grid_op_bwd"] += 1
+        grid4.data_ptr(), poses.data_ptr(), softness.data_ptr(), ct.data_ptr(),
+        dgrid4.data_ptr(), dposes.data_ptr(), partials.data_ptr(),
+        prim_table(scene.primitives), B, *_consts(scene), grid4.device.index,
+        cb.stream_of(grid4))
+    name = cb.launch_key("grid_op_bwd", grid4)
+    cb.check(err, name)
+    launches[name] += 1
     return dgrid4, dposes
 
 
 class GridOp(torch.autograd.Function):
-    """(grid4, poses (k, 16)) -> grid_v: forward K8, backward K8-bwd (saves
-    grid4 and poses)."""
+    """(grid4, poses, softness (B,)) -> grid_v: forward K8, backward K8-bwd
+    (saves all three); one env (grid4 (G^3, 4), poses (k, 16), softness
+    (1,)) or B envs. No gradient for softness."""
 
     @staticmethod
-    def forward(ctx, grid4, poses, scene, softness):
-        ctx.scene, ctx.softness = scene, softness
-        ctx.save_for_backward(grid4, poses)
-        return _launch_fwd(scene, grid4, poses, _softness_tensor(softness, grid4.device))
+    def forward(ctx, grid4, poses, softness, scene):
+        ctx.scene = scene
+        ctx.save_for_backward(grid4, poses, softness)
+        return _launch_fwd(scene, grid4, poses, softness)
 
     @staticmethod
     def backward(ctx, ct):
-        grid4, poses = ctx.saved_tensors
-        dgrid4, dposes = grid_op_bwd(ctx.scene, grid4, poses, ctx.softness, ct.contiguous())
+        grid4, poses, softness = ctx.saved_tensors
+        dgrid4, dposes = grid_op_bwd(ctx.scene, grid4, poses, softness, ct.contiguous())
         return dgrid4, dposes, None, None
+
+
+def _check_poses(scene: SceneSpec, grid4, pose_f, pose_f1, lead=()):
+    G, k = scene.simulator.n_grid, len(scene.primitives)
+    cb.require(grid4, "grid4", lead + (G ** 3, 4), grid4.device)
+    for pose in (pose_f, pose_f1):
+        for t, name, shape in zip(pose, ("pos", "rot", "gap"), ((k, 3), (k, 4), (k,))):
+            cb.require(t, name, lead + shape, grid4.device)
 
 
 def grid_op(scene: SceneSpec, grid4, pose_f, pose_f1, softness: float):
     """-> grid_v (G^3, 3); the K8 kernel (backward K8-bwd) on CUDA, the plain
     version on the CPU."""
-    G = scene.simulator.n_grid
-    k = len(scene.primitives)
-    cb.require(grid4, "grid4", (G ** 3, 4), grid4.device)
-    for pose in (pose_f, pose_f1):
-        for t, name, shape in zip(pose, ("pos", "rot", "gap"), ((k, 3), (k, 4), (k,))):
-            cb.require(t, name, shape, grid4.device)
+    _check_poses(scene, grid4, pose_f, pose_f1)
     if grid4.device.type == "cpu":
         return grid_op_plain(scene, grid4, pose_f, pose_f1, softness)
-    return GridOp.apply(grid4, pack_poses(pose_f, pose_f1), scene, float(softness))
+    return GridOp.apply(grid4, pack_poses(pose_f, pose_f1),
+                        _softness_tensor(float(softness), grid4.device), scene)
 
 
 def grid_op_batched(scene: SceneSpec, grid4, pose_f, pose_f1, softness):
     """grid4 (B, G^3, 4), poses (pos (B, k, 3), rot (B, k, 4), gap (B, k)) at
-    f and f+1, softness (B,) -> grid_v (B, G^3, 3); the K8 forward kernel
-    over B envs on CUDA, `grid_op_plain_batched` on the CPU. Forward only."""
-    B, G, k = grid4.shape[0], scene.simulator.n_grid, len(scene.primitives)
-    cb.require(grid4, "grid4", (B, G ** 3, 4), grid4.device)
-    for pose in (pose_f, pose_f1):
-        for t, name, shape in zip(pose, ("pos", "rot", "gap"),
-                                  ((B, k, 3), (B, k, 4), (B, k))):
-            cb.require(t, name, shape, grid4.device)
+    f and f+1, softness (B,) -> grid_v (B, G^3, 3); the K8 kernels over B
+    envs (forward, and backward K8-bwd) on CUDA, `grid_op_plain_batched` on
+    the CPU."""
+    B = grid4.shape[0]
+    _check_poses(scene, grid4, pose_f, pose_f1, (B,))
     cb.require(softness, "softness", (B,), grid4.device)
-    cb.require_no_grad("grid_op_batched", grid4, *pose_f, *pose_f1, softness)
     if grid4.device.type == "cpu":
         return grid_op_plain_batched(scene, grid4, pose_f, pose_f1, softness)
-    return _launch_fwd(scene, grid4, pack_poses(pose_f, pose_f1), softness, "grid_op_batched")
+    return GridOp.apply(grid4, pack_poses(pose_f, pose_f1), softness, scene)

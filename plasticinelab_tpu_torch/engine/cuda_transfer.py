@@ -30,13 +30,16 @@ the H100 the natural form is the reference's own: one thread per particle,
   dx terms run through the spline weight derivatives (chained by inv_dx)
   and through dpos = cell - x inv_dx.
 
-The forward kernels take a batch of envs (x (B, n, 3), grids (B, G^3, C)),
-one thread per particle of all envs, each scattering into or gathering from
-its own env's grid. So they also replace the batched grids of K3, K5 and K7
-forward (`pallas_local.py:725` `transfer_fns_batched`, `:767` and `:793`;
-`:865` `mass_fns_batched`, `:892`): `p2g_batched`, `g2p_batched` and
-`grid_mass_batched` launch them over B envs, `p2g`, `g2p` and `grid_mass`
-with B = 1. The batched wrappers are forward only.
+Every kernel, forward and backward, takes a batch of envs (x (B, n, 3),
+grids and their cotangents (B, G^3, C)), one thread per particle of all
+envs, each scattering into or gathering from its own env's grid. So they
+also replace the batched grids of the same TPU kernels
+(`pallas_local.py:725` `transfer_fns_batched`: K3-b `:767`, K4-b `:780`,
+K5-b `:793`, K6-b `:805`; `:865` `mass_fns_batched`: K7-fwd-b `:892`,
+K7-bwd-b `:904`): `p2g_batched`, `g2p_batched` and `grid_mass_batched`
+launch them over B envs, `p2g`, `g2p` and `grid_mass` with B = 1, through
+the same autograd Functions. A launch over a leading B counts under
+`<name>_batched` (`p2g_bwd_batched`, ...), whatever B.
 
 Each wrapper takes its plain version (differentiable through index_add_
 and gather) only for a CPU tensor; for a CUDA tensor it launches its kernel
@@ -52,7 +55,8 @@ from . import cuda_build as cb
 from .transfer import stencil
 
 launches = {"p2g": 0, "grid_mass": 0, "g2p": 0, "p2g_bwd": 0, "grid_mass_bwd": 0,
-            "g2p_bwd": 0, "p2g_batched": 0, "grid_mass_batched": 0, "g2p_batched": 0}
+            "g2p_bwd": 0, "p2g_batched": 0, "grid_mass_batched": 0, "g2p_batched": 0,
+            "p2g_bwd_batched": 0, "grid_mass_bwd_batched": 0, "g2p_bwd_batched": 0}
 
 
 def reset_launches() -> None:
@@ -147,7 +151,17 @@ def _envs(x) -> tuple:
     return (x.shape[0], x.shape[1]) if x.dim() == 3 else (1, x.shape[0])
 
 
-def _launch_p2g(scene: SceneSpec, x, v, affine, name: str = "p2g"):
+def _check_particles(x, v, affine):
+    """x, v (n, 3) and affine (n, 3, 3) of one env, or each with a leading B."""
+    if x.dim() not in (2, 3):
+        raise ValueError(f"x: expected (n, 3) or (B, n, 3), got {tuple(x.shape)}")
+    lead = tuple(x.shape[:-1])
+    for t, name, shape in ((x, "x", lead + (3,)), (v, "v", lead + (3,)),
+                           (affine, "affine", lead + (3, 3))):
+        cb.require(t, name, shape, x.device)
+
+
+def _launch_p2g(scene: SceneSpec, x, v, affine):
     """K3 over x (n, 3) -> (G^3, 4), or over B envs x (B, n, 3) -> (B, G^3, 4)."""
     for t, arg in ((x, "x"), (v, "v"), (affine, "affine")):
         cb.require_kernel_input(t, arg)
@@ -159,31 +173,36 @@ def _launch_p2g(scene: SceneSpec, x, v, affine, name: str = "p2g"):
         x.data_ptr(), v.data_ptr(), affine.data_ptr(), grid.data_ptr(), n, B,
         sim.n_grid, sim.inv_dx, sim.dx, sim.p_mass, x.device.index,
         cb.stream_of(x))
+    name = cb.launch_key("p2g", x)
     cb.check(err, name)
     launches[name] += 1
     return grid
 
 
 def p2g_bwd(scene: SceneSpec, x, v, affine, ct):
-    """The K4 kernel: grid4 cotangent (G^3, 4) -> (dx (n,3), dv (n,3),
-    daffine (n,3,3)), the VJP of `p2g_plain`. CUDA tensors only."""
-    n, sim = x.shape[0], scene.simulator
+    """The K4 kernel: grid4 cotangent (G^3, 4) -> (dx (n, 3), dv (n, 3),
+    daffine (n, 3, 3)), the VJP of `p2g_plain`; with a leading B on every
+    tensor, of `p2g_plain_batched`, in one launch. CUDA tensors only."""
+    sim = scene.simulator
+    B, n = _envs(x)
     _check_particles(x, v, affine)
-    cb.require(ct, "ct", (sim.n_grid ** 3, 4), x.device)
-    for t, name in ((x, "x"), (v, "v"), (affine, "affine"), (ct, "ct")):
-        cb.require_kernel_input(t, name)
+    cb.require(ct, "ct", x.shape[:-2] + (sim.n_grid ** 3, 4), x.device)
+    for t, arg in ((x, "x"), (v, "v"), (affine, "affine"), (ct, "ct")):
+        cb.require_kernel_input(t, arg)
     gx, gv, gaff = torch.empty_like(x), torch.empty_like(v), torch.empty_like(affine)
     err = cb.library().plb_p2g_bwd(
         x.data_ptr(), v.data_ptr(), affine.data_ptr(), ct.data_ptr(), gx.data_ptr(),
-        gv.data_ptr(), gaff.data_ptr(), n, sim.n_grid, sim.inv_dx, sim.dx, sim.p_mass,
+        gv.data_ptr(), gaff.data_ptr(), n, B, sim.n_grid, sim.inv_dx, sim.dx, sim.p_mass,
         x.device.index, cb.stream_of(x))
-    cb.check(err, "p2g_bwd")
-    launches["p2g_bwd"] += 1
+    name = cb.launch_key("p2g_bwd", x)
+    cb.check(err, name)
+    launches[name] += 1
     return gx, gv, gaff
 
 
 class P2G(torch.autograd.Function):
-    """(x, v, affine) -> grid4: forward K3, backward K4 (saves x, v, affine)."""
+    """(x, v, affine) -> grid4: forward K3, backward K4 (saves x, v, affine);
+    one env or B envs."""
 
     @staticmethod
     def forward(ctx, x, v, affine, scene):
@@ -197,7 +216,7 @@ class P2G(torch.autograd.Function):
         return (*p2g_bwd(ctx.scene, x, v, affine, ct.contiguous()), None)
 
 
-def _launch_grid_mass(scene: SceneSpec, x, name: str = "grid_mass"):
+def _launch_grid_mass(scene: SceneSpec, x):
     """K7 forward over x (n, 3) -> (G^3,), or over x (B, n, 3) -> (B, G^3)."""
     cb.require_kernel_input(x, "x")
     sim = scene.simulator
@@ -206,6 +225,7 @@ def _launch_grid_mass(scene: SceneSpec, x, name: str = "grid_mass"):
     err = cb.library().plb_grid_mass(
         x.data_ptr(), grid.data_ptr(), n, B, sim.n_grid, sim.inv_dx, sim.p_mass,
         x.device.index, cb.stream_of(x))
+    name = cb.launch_key("grid_mass", x)
     cb.check(err, name)
     launches[name] += 1
     return grid
@@ -213,23 +233,26 @@ def _launch_grid_mass(scene: SceneSpec, x, name: str = "grid_mass"):
 
 def grid_mass_bwd(scene: SceneSpec, x, ct):
     """The K7 backward kernel (the MASS_ONLY form of K4): grid mass
-    cotangent (G^3,) -> dx (n, 3). CUDA tensors only."""
-    n, sim = x.shape[0], scene.simulator
-    cb.require(x, "x", (n, 3), x.device)
-    cb.require(ct, "ct", (sim.n_grid ** 3,), x.device)
+    cotangent (G^3,) -> dx (n, 3), or (B, G^3) -> (B, n, 3) in one launch.
+    CUDA tensors only."""
+    sim = scene.simulator
+    B, n = _envs(x)
+    cb.require(x, "x", x.shape[:-1] + (3,), x.device)
+    cb.require(ct, "ct", x.shape[:-2] + (sim.n_grid ** 3,), x.device)
     cb.require_kernel_input(x, "x")
     cb.require_kernel_input(ct, "ct")
     gx = torch.empty_like(x)
     err = cb.library().plb_grid_mass_bwd(
-        x.data_ptr(), ct.data_ptr(), gx.data_ptr(), n, sim.n_grid, sim.inv_dx,
+        x.data_ptr(), ct.data_ptr(), gx.data_ptr(), n, B, sim.n_grid, sim.inv_dx,
         sim.p_mass, x.device.index, cb.stream_of(x))
-    cb.check(err, "grid_mass_bwd")
-    launches["grid_mass_bwd"] += 1
+    name = cb.launch_key("grid_mass_bwd", x)
+    cb.check(err, name)
+    launches[name] += 1
     return gx
 
 
 class GridMass(torch.autograd.Function):
-    """x -> grid_m: forward K7, backward K7-bwd (saves x)."""
+    """x -> grid_m: forward K7, backward K7-bwd (saves x); one env or B envs."""
 
     @staticmethod
     def forward(ctx, x, scene):
@@ -243,7 +266,7 @@ class GridMass(torch.autograd.Function):
         return grid_mass_bwd(ctx.scene, x, ct.contiguous()), None
 
 
-def _launch_g2p(scene: SceneSpec, x, grid_v, name: str = "g2p"):
+def _launch_g2p(scene: SceneSpec, x, grid_v):
     """K5 over x (n, 3) and grid_v (G^3, 3), or over B envs: x (B, n, 3),
     grid_v (B, G^3, 3) -> new_v, new_C, new_x with x's leading shape."""
     cb.require_kernel_input(x, "x")
@@ -257,38 +280,48 @@ def _launch_g2p(scene: SceneSpec, x, grid_v, name: str = "g2p"):
         x.data_ptr(), grid_v.data_ptr(), new_v.data_ptr(), new_C.data_ptr(),
         new_x.data_ptr(), n, B, sim.n_grid, sim.inv_dx, sim.dt,
         1.0 - 3 * sim.dx, x.device.index, cb.stream_of(x))
+    name = cb.launch_key("g2p", x)
     cb.check(err, name)
     launches[name] += 1
     return new_v, new_C, new_x
 
 
+def _check_g2p(scene: SceneSpec, x, grid_v):
+    if x.dim() not in (2, 3):
+        raise ValueError(f"x: expected (n, 3) or (B, n, 3), got {tuple(x.shape)}")
+    cb.require(x, "x", x.shape[:-1] + (3,), x.device)
+    cb.require(grid_v, "grid_v", x.shape[:-2] + (scene.simulator.n_grid ** 3, 3), x.device)
+
+
 def g2p_bwd(scene: SceneSpec, x, grid_v, ct_v, ct_C, ct_x):
     """The K6 kernel: cotangents of (new_v, new_C, new_x) -> (dx (n, 3),
-    d grid_v (G^3, 3)), the VJP of `g2p_plain` away from the clamp's ties.
+    d grid_v (G^3, 3)), the VJP of `g2p_plain` away from the clamp's ties;
+    with a leading B on every tensor, of `g2p_plain_batched`, in one launch.
     CUDA tensors only."""
-    n, sim = x.shape[0], scene.simulator
-    cb.require(x, "x", (n, 3), x.device)
-    cb.require(grid_v, "grid_v", (sim.n_grid ** 3, 3), x.device)
-    for t, name, shape in ((ct_v, "ct_v", (n, 3)), (ct_C, "ct_C", (n, 3, 3)),
-                           (ct_x, "ct_x", (n, 3))):
-        cb.require(t, name, shape, x.device)
-    for t, name in ((x, "x"), (grid_v, "grid_v"), (ct_v, "ct_v"), (ct_C, "ct_C"),
-                    (ct_x, "ct_x")):
-        cb.require_kernel_input(t, name)
+    sim = scene.simulator
+    B, n = _envs(x)
+    _check_g2p(scene, x, grid_v)
+    for t, arg, shape in ((ct_v, "ct_v", x.shape), (ct_C, "ct_C", x.shape + (3,)),
+                          (ct_x, "ct_x", x.shape)):
+        cb.require(t, arg, shape, x.device)
+    for t, arg in ((x, "x"), (grid_v, "grid_v"), (ct_v, "ct_v"), (ct_C, "ct_C"),
+                   (ct_x, "ct_x")):
+        cb.require_kernel_input(t, arg)
     gx = torch.empty_like(x)
     g_grid = torch.zeros_like(grid_v)
     err = cb.library().plb_g2p_bwd(
         x.data_ptr(), grid_v.data_ptr(), ct_v.data_ptr(), ct_C.data_ptr(),
-        ct_x.data_ptr(), gx.data_ptr(), g_grid.data_ptr(), n, sim.n_grid, sim.inv_dx,
+        ct_x.data_ptr(), gx.data_ptr(), g_grid.data_ptr(), n, B, sim.n_grid, sim.inv_dx,
         sim.dt, 1.0 - 3 * sim.dx, x.device.index, cb.stream_of(x))
-    cb.check(err, "g2p_bwd")
-    launches["g2p_bwd"] += 1
+    name = cb.launch_key("g2p_bwd", x)
+    cb.check(err, name)
+    launches[name] += 1
     return gx, g_grid
 
 
 class G2P(torch.autograd.Function):
     """(x, grid_v) -> (new_v, new_C, new_x): forward K5, backward K6 (saves
-    x, grid_v)."""
+    x, grid_v); one env or B envs."""
 
     @staticmethod
     def forward(ctx, x, grid_v, scene):
@@ -305,19 +338,18 @@ class G2P(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
-# wrappers
+# wrappers: one env, or B envs in one launch; both differentiable
 # ---------------------------------------------------------------------------
 
-def _check_particles(x, v, affine):
-    n = x.shape[0]
-    for t, name, shape in ((x, "x", (n, 3)), (v, "v", (n, 3)),
-                           (affine, "affine", (n, 3, 3))):
-        cb.require(t, name, shape, x.device)
+def _require_dim(x, dim: int, what: str):
+    if x.dim() != dim:
+        raise ValueError(f"x: expected {what}, got {tuple(x.shape)}")
 
 
 def p2g(scene: SceneSpec, x, v, affine):
     """-> grid4 (G^3, 4); the K3 kernel (backward K4) on CUDA, `p2g_plain`
     on the CPU."""
+    _require_dim(x, 2, "(n, 3)")
     _check_particles(x, v, affine)
     if x.device.type == "cpu":
         return p2g_plain(scene, x, v, affine)
@@ -336,53 +368,41 @@ def grid_mass(scene: SceneSpec, x):
 def g2p(scene: SceneSpec, x, grid_v):
     """-> (new_v, new_C, new_x); the K5 kernel (backward K6) on CUDA,
     `g2p_plain` on the CPU."""
-    n = x.shape[0]
-    sim = scene.simulator
-    cb.require(x, "x", (n, 3), x.device)
-    cb.require(grid_v, "grid_v", (sim.n_grid ** 3, 3), x.device)
+    _require_dim(x, 2, "(n, 3)")
+    _check_g2p(scene, x, grid_v)
     if x.device.type == "cpu":
         return g2p_plain(scene, x, grid_v)
     return G2P.apply(x, grid_v, scene)
 
 
-# batched wrappers: B envs in one launch, forward only (the batched VJPs
-# K4-b, K6-b and K7-bwd-b are not ported)
-
-def _check_batch(x, v, affine):
-    B, n = x.shape[:2]
-    for t, name, shape in ((x, "x", (B, n, 3)), (v, "v", (B, n, 3)),
-                           (affine, "affine", (B, n, 3, 3))):
-        cb.require(t, name, shape, x.device)
-
-
 def p2g_batched(scene: SceneSpec, x, v, affine):
     """x, v (B, n, 3), affine (B, n, 3, 3) -> grid4 (B, G^3, 4); the K3
-    kernel over B envs on CUDA, `p2g_plain_batched` on the CPU."""
-    _check_batch(x, v, affine)
-    cb.require_no_grad("p2g_batched", x, v, affine)
+    kernel over B envs (backward K4 over B envs) on CUDA,
+    `p2g_plain_batched` on the CPU."""
+    _require_dim(x, 3, "(B, n, 3)")
+    _check_particles(x, v, affine)
     if x.device.type == "cpu":
         return p2g_plain_batched(scene, x, v, affine)
-    return _launch_p2g(scene, x, v, affine, "p2g_batched")
+    return P2G.apply(x, v, affine, scene)
 
 
 def grid_mass_batched(scene: SceneSpec, x):
-    """x (B, n, 3) -> grid_m (B, G^3); the K7 forward kernel over B envs on
-    CUDA, `grid_mass_plain_batched` on the CPU."""
+    """x (B, n, 3) -> grid_m (B, G^3); the K7 forward kernel over B envs
+    (backward K7 backward over B envs) on CUDA, `grid_mass_plain_batched` on
+    the CPU."""
+    _require_dim(x, 3, "(B, n, 3)")
     cb.require(x, "x", (x.shape[0], x.shape[1], 3), x.device)
-    cb.require_no_grad("grid_mass_batched", x)
     if x.device.type == "cpu":
         return grid_mass_plain_batched(scene, x)
-    return _launch_grid_mass(scene, x, "grid_mass_batched")
+    return GridMass.apply(x, scene)
 
 
 def g2p_batched(scene: SceneSpec, x, grid_v):
     """x (B, n, 3), grid_v (B, G^3, 3) -> (new_v, new_C, new_x) with a
-    leading B; the K5 kernel over B envs on CUDA, `g2p_plain_batched` on the
-    CPU."""
-    B, n = x.shape[:2]
-    cb.require(x, "x", (B, n, 3), x.device)
-    cb.require(grid_v, "grid_v", (B, scene.simulator.n_grid ** 3, 3), x.device)
-    cb.require_no_grad("g2p_batched", x, grid_v)
+    leading B; the K5 kernel over B envs (backward K6 over B envs) on CUDA,
+    `g2p_plain_batched` on the CPU."""
+    _require_dim(x, 3, "(B, n, 3)")
+    _check_g2p(scene, x, grid_v)
     if x.device.type == "cpu":
         return g2p_plain_batched(scene, x, grid_v)
-    return _launch_g2p(scene, x, grid_v, "g2p_batched")
+    return G2P.apply(x, grid_v, scene)

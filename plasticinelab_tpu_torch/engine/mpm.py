@@ -29,8 +29,10 @@ particles, then the batched kernels (`KERNEL_OPS_BATCHED`: K3, K8 forward
 and K5 over B envs, K7 forward for the loss), each launched once per
 substep for the whole batch. Controls and forward kinematics run over the
 batch in the same tensor ops, so a substep's launches do not grow with B.
-It is forward only: the batched wrappers raise on inputs that require
-grad.
+It is differentiable in the states and the actions like the single env
+step: the same autograd Functions run the backward kernels over B envs
+(K2 on the B n particles; K4, K8 backward, K6 and K7 backward batched),
+one launch each per substep.
 """
 from __future__ import annotations
 
@@ -45,7 +47,8 @@ from .state import Controls, Materials, SimState
 
 __all__ = ["Ops", "KERNEL_OPS", "PLAIN_OPS", "KERNEL_OPS_BATCHED", "PLAIN_OPS_BATCHED",
            "make_controls", "make_controls_batched", "fk_step", "substep", "substep_batched",
-           "env_step", "env_step_with_grid_m", "env_step_batched", "resolve_remat"]
+           "env_step", "env_step_with_grid_m", "env_step_batched", "resolve_remat",
+           "remat_for"]
 
 
 class Ops(NamedTuple):
@@ -197,7 +200,8 @@ def env_step_batched(scene: SceneSpec, mats: Materials, states: SimState, action
 # substep's state (x, v, C, F: 96 B), the affine P2G saves (36 B) and what
 # the peak backward adds. Measured on the card: 8.346 MiB per substep over
 # a 50-step Move-v1 trajectory gradient (10,000 particles, 64^3 grid; H100
-# 80GB HBM3, PERF.md), which sets the per-particle share to 141 B.
+# 80GB HBM3, PERF.md), which sets the per-particle share to 141 B. B envs
+# stepped together keep B times as much.
 _BYTES_PER_PARTICLE = 141
 _BYTES_PER_CELL = 28
 # share of the free device memory a rollout's stored substeps may take
@@ -210,22 +214,30 @@ def substep_bytes(scene: SceneSpec) -> int:
     return sim.n_particles * _BYTES_PER_PARTICLE + sim.n_grid ** 3 * _BYTES_PER_CELL
 
 
-def resolve_remat(scene: SceneSpec, horizon: int, device) -> str:
-    """The cheapest rematerialisation policy for a `horizon`-step rollout's
-    backward (`plasticinelab_tpu/engine/mpm.py:resolve_remat`, with this
-    card's sizes):
+def resolve_remat(scene: SceneSpec, horizon: int, device, batch: int = 1) -> str:
+    """The cheapest rematerialisation policy for the backward of a
+    `horizon`-step rollout of `batch` envs stepped together
+    (`plasticinelab_tpu/engine/mpm.py:resolve_remat`, with this card's
+    sizes):
 
     - "none": keep every substep's saved tensors (no recompute);
     - "env_step": keep one state per env step and recompute each env step's
       substeps in the backward (torch.utils.checkpoint), so one env step's
       saved tensors live at a time.
 
-    "none" where horizon x substeps x `substep_bytes` fits in
-    `_REMAT_BUDGET` of the free memory `torch.cuda.mem_get_info` reports;
-    on the CPU, "none"."""
+    "none" where batch x horizon x substeps x `substep_bytes` fits in
+    `_REMAT_BUDGET` of the free memory: what `torch.cuda.mem_get_info`
+    reports plus what PyTorch's allocator holds in reserve without using
+    it; on the CPU, "none"."""
     device = torch.device(device)
     if device.type != "cuda":
         return "none"
     free, _ = torch.cuda.mem_get_info(device)
-    need = horizon * scene.simulator.substeps * substep_bytes(scene)
-    return "none" if need <= _REMAT_BUDGET * free else "env_step"
+    free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return remat_for(scene, horizon, batch, free)
+
+
+def remat_for(scene: SceneSpec, horizon: int, batch: int, free_bytes: int) -> str:
+    """`resolve_remat`'s rule for a device with `free_bytes` free."""
+    need = batch * horizon * scene.simulator.substeps * substep_bytes(scene)
+    return "none" if need <= _REMAT_BUDGET * free_bytes else "env_step"

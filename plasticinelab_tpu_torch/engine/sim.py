@@ -6,7 +6,9 @@ incremental IoU), `get_obs`, `get_state` / `set_state`, `retarget`, the
 trajectory gradient `rollout_value_and_grad` (:271-309), and rendering:
 `render` (:314-340) and the visual observation `render_obs` (:342-381),
 through `renderer.Renderer`. The API follows the reference composition root
-plb/engine/taichi_env.py.
+plb/engine/taichi_env.py. `rollout_losses_batched` is the rollout of B envs
+stepped together that `parallel.mesh.build_batched_rollout_grad`
+differentiates (`plasticinelab_tpu/parallel/mesh.py:104-127`).
 """
 from __future__ import annotations
 
@@ -52,9 +54,6 @@ def rollout_losses(scene, mats, loss_state, state0: SimState, actions: torch.Ten
     mass. remat "env_step" recomputes each env step in the backward
     (torch.utils.checkpoint) instead of keeping its substeps; "none" keeps
     everything (`mpm.resolve_remat`)."""
-    if remat not in ("none", "env_step"):
-        raise ValueError(f"remat must be 'none' or 'env_step', got {remat!r}")
-
     def step(*args):
         state, action = SimState(*args[:7]), args[7]
         st, gm = mpm.env_step_with_grid_m(scene, mats, state, action, softness, ops)
@@ -63,6 +62,15 @@ def rollout_losses(scene, mats, loss_state, state0: SimState, actions: torch.Ten
                              info["contact_loss"], info["iou"].detach()])
         return (*_fields(st), comps)
 
+    return _scan(step, state0, actions, remat)
+
+
+def _scan(step, state0: SimState, actions, remat: str):
+    """state, row = step(*fields(state), action) over the leading axis of
+    `actions` -> (stacked rows, final state); under remat "env_step" each
+    step is a torch.utils.checkpoint, recomputed in the backward."""
+    if remat not in ("none", "env_step"):
+        raise ValueError(f"remat must be 'none' or 'env_step', got {remat!r}")
     state, rows = state0, []
     for action in actions:
         if remat == "env_step":
@@ -72,6 +80,27 @@ def rollout_losses(scene, mats, loss_state, state0: SimState, actions: torch.Ten
         state = SimState(*out[:7])
         rows.append(out[7])
     return torch.stack(rows), state
+
+
+def rollout_losses_batched(scene, mats, loss_state, states0: SimState, actions: torch.Tensor,
+                           softness, remat: str = "none",
+                           ops: mpm.Ops = mpm.KERNEL_OPS_BATCHED):
+    """Roll B envs together, `states0` with a leading B, through `actions`
+    (B, horizon, action_dim) -> (each step's loss of each env (horizon, B),
+    final states), differentiable in the actions
+    (`plasticinelab_tpu/parallel/mesh.py:104-127` on the full grid). Every
+    step is one `mpm.env_step_batched` of all envs and the full-grid loss of
+    each env from its grid mass (B, G^3). softness: a number or (B,). remat
+    as in `rollout_losses`: under "env_step" one batched env step's substeps
+    live at a time, and the recomputed forward scatters with atomics again,
+    so its grids differ from the first pass's in the last bits."""
+    def step(*args):
+        states, acts = SimState(*args[:7]), args[7]
+        st, gm = mpm.env_step_batched(scene, mats, states, acts, softness, want_grid_m=True,
+                                      ops=ops)
+        return (*_fields(st), losses_mod.loss_and_components(scene, loss_state, st, gm)["loss"])
+
+    return _scan(step, states0, actions.transpose(0, 1), remat)
 
 
 def observation(scene: SceneSpec, state: SimState) -> torch.Tensor:

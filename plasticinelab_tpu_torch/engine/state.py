@@ -95,21 +95,29 @@ def initial_state(scene: SceneSpec, particles: np.ndarray, device,
     )
 
 
+def tile_states(state: SimState, batch: int, jitter: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> SimState:
+    """One state tiled over `batch` envs (a leading B on every tensor), each
+    env's particles moved by uniform(-jitter, jitter) noise and clipped to
+    [0, 0.95] (`plasticinelab_tpu/parallel/rollout.py:110-117`,
+    `parallel/mesh.py:49-62`). The noise is drawn on the CPU from
+    `generator` (a fresh default one if None), so a seed gives the same
+    starts on every device; its bits differ from the TPU package's draws
+    (its PRNGKey(seed) uniform) from the same seed."""
+    tiled = [t.expand((batch,) + t.shape).contiguous() for t in state_fields(state)]
+    if jitter > 0:
+        x = tiled[0]
+        noise = torch.rand(x.shape, generator=generator, dtype=x.dtype) * (2 * jitter) - jitter
+        tiled[0] = torch.clamp(x + noise.to(x.device), 0.0, 0.95)
+    return SimState(*tiled)
+
+
 def initial_states(scene: SceneSpec, particles: np.ndarray, batch: int, device,
                    dtype: torch.dtype, jitter: float = 0.0,
                    generator: Optional[torch.Generator] = None) -> SimState:
-    """`initial_state` tiled over `batch` envs, each env's particles moved
-    by uniform(-jitter, jitter) noise and clipped to [0, 0.95]
-    (`plasticinelab_tpu/parallel/rollout.py:110-117`). The noise is drawn on
-    the CPU from `generator` (a fresh default one if None), so a seed gives
-    the same starts on every device; its bits differ from the TPU package's
-    draws (its PRNGKey(seed) uniform) from the same seed."""
-    base = initial_state(scene, particles, "cpu", dtype)
-    tiled = [t.expand((batch,) + t.shape).contiguous() for t in state_fields(base)]
-    if jitter > 0:
-        noise = torch.rand(tiled[0].shape, generator=generator, dtype=dtype) * (2 * jitter) - jitter
-        tiled[0] = torch.clamp(tiled[0] + noise, 0.0, 0.95)
-    return SimState(*(t.to(device) for t in tiled))
+    """`initial_state` tiled over `batch` envs with jittered particles
+    (`tile_states`), on `device`."""
+    return tile_states(initial_state(scene, particles, device, dtype), batch, jitter, generator)
 
 
 def state_fields(state: SimState):

@@ -49,7 +49,8 @@ class VecPlasticineEnv:
 
     The envs start from the task's initial cloud, each moved by
     uniform(-jitter, jitter) noise from a generator seeded with `seed`
-    (`state.initial_states`). The step is forward only, under no_grad."""
+    (`state.initial_states`). The step runs under no_grad; the gradient of
+    a batched rollout is `parallel.mesh.build_batched_rollout_grad`."""
 
     def __init__(self, env_name: Optional[str], batch: int, seed: int = 0,
                  jitter: float = 1e-3, horizon: int = 50, scene: Optional[SceneSpec] = None,

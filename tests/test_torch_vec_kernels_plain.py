@@ -13,8 +13,8 @@ CPU:
     states carried across. Tolerances are that test's: x 1e-6; v and F
     2e-5 absolute / 1e-4 relative; grid_m 1e-5 / 1e-4 (the Pallas
     transfers contract with a 3-pass bf16 split, the port in float32);
-(c) the batched wrappers are forward only: they raise on inputs that
-    require grad."""
+(c) on CPU tensors that require grad each batched wrapper returns its
+    plain version's output and gradient."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -257,27 +257,69 @@ def test_env_step_batched_plain_matches_tpu_package(rows_interpret):
 
 
 # ---------------------------------------------------------------------------
-# (c) forward only
+# (c) the batched wrappers differentiate their plain versions on the CPU
 # ---------------------------------------------------------------------------
+
+def _vjp(fn, inputs, cts):
+    """fn's VJP at inputs for cotangents cts through torch.autograd."""
+    ins = [t.clone().requires_grad_(True) for t in inputs]
+    out = fn(*ins)
+    out = out if isinstance(out, tuple) else (out,)
+    grads = torch.autograd.grad(out, ins, cts, allow_unused=True)
+    return [torch.zeros_like(i) if g is None else g for g, i in zip(grads, ins)]
+
+
+def _ct(seed, *shape):
+    return torch.tensor(np.random.default_rng(seed).standard_normal(shape), dtype=F64)
+
+
+def _transfer_cases(scene):
+    """name -> (batched wrapper, batched plain, single plain, inputs, cotangents)."""
+    G3 = scene.simulator.n_grid ** 3
+    x, v, aff = _particles(20)
+    n = x.shape[1]
+    grid_v = _ct(21, B, G3, 3)
+    return {
+        "p2g_batched": (cuda_transfer.p2g_batched, cuda_transfer.p2g_plain_batched,
+                        cuda_transfer.p2g_plain, [x, v, aff], [_ct(22, B, G3, 4)]),
+        "grid_mass_batched": (cuda_transfer.grid_mass_batched,
+                              cuda_transfer.grid_mass_plain_batched,
+                              cuda_transfer.grid_mass_plain, [x], [_ct(23, B, G3)]),
+        "g2p_batched": (cuda_transfer.g2p_batched, cuda_transfer.g2p_plain_batched,
+                        cuda_transfer.g2p_plain, [x, grid_v],
+                        [_ct(24, B, n, 3), _ct(25, B, n, 3, 3), _ct(26, B, n, 3)]),
+    }
+
+
+def _grid_op_inputs(scene):
+    G3 = scene.simulator.n_grid ** 3
+    rng = np.random.default_rng(2)
+    g4 = rng.standard_normal((B, G3, 4)) * 1e-4
+    g4[..., 3] = np.where(rng.random((B, G3)) < 0.25, 0.0,
+                          np.abs(rng.standard_normal((B, G3))) * 1e-4 + 1e-6)
+    pf, pf1 = _poses(3, 1)
+    return torch.tensor(g4, dtype=F64), pf, pf1, torch.tensor([666.0, 0.0, 100.0], dtype=F64)
+
 
 @pytest.mark.parametrize("name", ["p2g_batched", "grid_mass_batched", "g2p_batched",
                                   "grid_op_batched"])
-def test_batched_wrappers_raise_on_inputs_that_require_grad(name):
-    scene = _scene(prims=SHAPE_KW[:1])
-    G3 = scene.simulator.n_grid ** 3
-    x, v, aff = _particles(11)
-    x = x.clone().requires_grad_(True)
-    pf, pf1 = _poses(12, 1)
-    calls = {
-        "p2g_batched": lambda: cuda_transfer.p2g_batched(scene, x, v, aff),
-        "grid_mass_batched": lambda: cuda_transfer.grid_mass_batched(scene, x),
-        "g2p_batched": lambda: cuda_transfer.g2p_batched(scene, x, torch.zeros(B, G3, 3,
-                                                                              dtype=F64)),
-        "grid_op_batched": lambda: cuda_gridop.grid_op_batched(
-            scene, torch.zeros(B, G3, 4, dtype=F64, requires_grad=True), pf, pf1,
-            torch.full((B,), 666.0, dtype=F64)),
-    }
-    with pytest.raises(NotImplementedError, match="A12"):
-        calls[name]()
-    with torch.no_grad():  # no gradient asked: the plain version runs
-        calls[name]()
+def test_batched_wrappers_differentiate_their_plain_versions_on_the_cpu(name):
+    """On CPU tensors that require grad a batched wrapper returns what its
+    plain version returns, and autograd gives the plain version's VJP."""
+    if name == "grid_op_batched":
+        scene = _scene(prims=SHAPE_KW[:1])
+        grid4, pf, pf1, softness = _grid_op_inputs(scene)
+        inputs, cts = [grid4, *pf, *pf1], [_ct(28, B, grid4.shape[1], 3)]
+        wrapper = lambda g, *ps: cuda_gridop.grid_op_batched(  # noqa: E731
+            scene, g, ps[:3], ps[3:], softness)
+        plain = lambda g, *ps: cuda_gridop.grid_op_plain_batched(  # noqa: E731
+            scene, g, ps[:3], ps[3:], softness)
+    else:
+        scene = _scene(prims=())
+        wrap, plain_b, _, inputs, cts = _transfer_cases(scene)[name]
+        wrapper = lambda *a: wrap(scene, *a)  # noqa: E731
+        plain = lambda *a: plain_b(scene, *a)  # noqa: E731
+    got, want = _vjp(wrapper, inputs, cts), _vjp(plain, inputs, cts)
+    assert float(want[0].abs().max()) > 0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
