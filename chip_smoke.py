@@ -8,7 +8,10 @@ Phases, each fatal on failure:
 2. build: builds the CUDA kernels from `plasticinelab_tpu_torch/csrc`;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    Move-v1 shapes (10,000 particles, 64^3 grid), inputs from a numpy seed;
-   the grid update once per primitive shape; kernel and plain times;
+   the scatters (K3, K7 forward) under four particle orders each: none, the
+   `cell_order` an env step computes, one an env step stale, a random
+   permutation; the grid update once per primitive shape; kernel and plain
+   times (the scatters' with the sorted order, the main path's);
 4. reference: Move-v1 reset + one fixed step against values computed by the
    reference package `plasticinelab_tpu` (loss terms, reward, observation sums);
 5. slice: `make("Move-v1", device="cuda")`, `reset()`, 50 seeded steps;
@@ -17,7 +20,11 @@ Phases, each fatal on failure:
 6. backward kernels: each backward kernel against the autograd VJP of its
    plain version on the card, at Move-v1 shapes, seeded cotangents; the
    grid update's backward once per primitive shape and for the walls and
-   the three ground regimes, its pose cotangents compared too;
+   the three ground regimes, its pose cotangents compared too; K6 under the
+   four orders; then the scatter cases: K3, K7 forward and K6 on a cloud
+   spread over the whole domain (hardly two particles share a cell: every
+   lane adds alone) and on a cloud in two corners (base cells clamped at
+   both walls), B = 2, four orders each;
 7. gradient: 5 Move-v1 env steps through the kernels and through the plain
    versions from the same state (loss and d/d actions); a 2-step Move-v1
    loss and gradient against values computed by the reference package; the
@@ -40,8 +47,8 @@ Phases, each fatal on failure:
 12. vec kernels: the batched kernels (K3-b, K7-fwd-b, K5-b, K8-fwd-b) at
    Move-v1 shapes for B = 8 envs against their plain versions, K5-b and
    K8-fwd-b bit for bit per env to B = 1 launches of the same kernels,
-   K3-b and K7-fwd-b within tolerance of them; kernel and plain times at
-   B = 8 and B = 32;
+   K3-b and K7-fwd-b within tolerance of them and, at both B, under the
+   four orders; kernel and plain times at B = 8 and B = 32;
 13. vec: `VecPlasticineEnv("Move-v1", batch=B, device="cuda")` for B = 1, 8
    and 32, reset + 50 seeded steps, each fetching obs, reward and info
    (env steps/s, peak memory; launch counts prove that every substep ran
@@ -63,19 +70,24 @@ Phases, each fatal on failure:
    cotangents, against the autograd VJP of their batched plain versions;
    per env against B = 1 launches of the same kernels: K4-b, K7-bwd-b,
    K6-b's dx and K8-bwd-b (d grid4 and d poses) bit for bit, K6-b's
-   d grid_v within tolerance (atomics); K8-bwd-b once per primitive shape,
+   d grid_v within tolerance (atomics) and, at both B, under the four
+   orders; K8-bwd-b once per primitive shape,
    each env with its own poses and softness; kernel and plain times at
    B = 8 and B = 32; K1 and K2 timed on the B n particles of the batched
    path. It comes after the gradient because its plain VJPs keep their
    autograd graphs for the device times (the memory they hold is logged);
-16. device times: each kernel and plain version under torch.profiler, the
+16. device times: the scatter kernels at B = 1, 8, 32 under the sorted, a
+   stale and no order with the share of global adds left (`lane_groups`),
+   and `cell_order`'s own time and device operations per env step; each
+   kernel and plain version under torch.profiler, the
    device's busy share in an rgb env step and a 1-spp frame, in 5 batched
    env steps and in a 2-step batched gradient at B = 1 and B = 32 with the
    device operations per batched substep (B = 32 within 1.2x of B = 1: no
    per-env loop, forward or backward), after everything else (an active
    profiler slows every later launch).
-Prints a JSON line of the kernels (`ms` and `plain_ms`: device time per call
-from torch.profiler; for a backward kernel, the plain version's time is that
+Prints a JSON line of the kernels (`max_abs_err` and `rel_err`: the largest
+error against the plain version and the same relative to the scale the
+check used; `ms` and `plain_ms`: device time per call from torch.profiler; for a backward kernel, the plain version's time is that
 of its autograd backward alone; `bound_ms`: the least time of the same work
 on an H100 at its published peaks, from this run's inputs; `library_ms`:
 null, no single PyTorch call computes any of these functions), then as the
@@ -314,22 +326,29 @@ def wall_time(fn, reps=KERNEL_REPS):
     return start.elapsed_time(end) / reps
 
 
-def device_time(fn, reps=KERNEL_REPS, attempts=3):
-    """ms per call of fn() on the device: the summed time of the kernels and
-    memsets it ran, from torch.profiler. A profiling session now and then
-    records no device events; it is repeated, up to `attempts` sessions
-    (None if none saw any)."""
+def device_ops(fn, reps=KERNEL_REPS):
+    """(device ms, device operations) per call of fn(): the summed time and
+    the count of the kernels and memsets it ran, from torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    return (sum(getattr(e, "self_device_time_total", 0.0) for e in events) / 1e3 / reps,
+            sum(e.count for e in events) / reps)
+
+
+def device_time(fn, reps=KERNEL_REPS, attempts=3):
+    """ms per call of fn() on the device (`device_ops`). A profile now and
+    then records no device events; it is repeated, up to `attempts` times
+    (None if none saw any)."""
     for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
-        if dev_us > 0:
-            return dev_us / 1e3 / reps
+        ms, _ = device_ops(fn, reps)
+        if ms > 0:
+            return ms
     return None
 
 
@@ -374,20 +393,22 @@ def record(results, key, name, err, kern, plain, inputs, items):
     """Times kernel `name` and its plain version (for a backward kernel: the
     plain version's autograd backward alone) with CUDA events, bounds the
     call from its inputs and outputs, and keeps both calls under
-    results[key] for the device times."""
+    results[key] for the device times. err: `compare`'s (max_abs, max_rel)."""
     k_wall, p_wall = wall_time(kern), wall_time(plain)
     b_ms, b_by = bound(name, list(inputs) + list(as_tuple(kern())), items)
-    results[key] = dict(max_abs_err=err, ms=k_wall, plain_ms=p_wall, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=None, calls=(kern, plain))
+    max_abs, max_rel = err
+    results[key] = dict(max_abs_err=max_abs, rel_err=max_rel, ms=k_wall, plain_ms=p_wall,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None, calls=(kern, plain))
     log(f"  {key:28s} wall ms/call: kernel {k_wall:.4f}  plain {p_wall:.4f}  "
         f"bound {b_ms:.5f} ({b_by})")
 
 
 def compare(name, got, want, tol, flip_budget=0, per_row=False):
-    """Max abs / rel error of got vs want (tuples of tensors); rows (cells or
-    particles) beyond tol x max|want| count as flips, at most flip_budget.
-    per_row: relative to each row's own largest |want| instead, for values
-    that span many decades."""
+    """(max abs, max rel) error of got vs want (tuples of tensors); rows
+    (cells or particles) beyond tol x max|want| count as flips, at most
+    flip_budget. per_row: relative to each row's own largest |want| instead,
+    for values that span many decades. The relative error is the one the
+    check used: of the largest value, or of the row."""
     import torch
 
     max_abs, max_rel, flips = 0.0, 0.0, 0
@@ -411,7 +432,7 @@ def compare(name, got, want, tol, flip_budget=0, per_row=False):
         f"(tol {tol:.0e} {scope})  flipped rows {flips} (budget {flip_budget})")
     if flips > flip_budget:
         raise AssertionError(f"{name}: {flips} rows beyond tolerance {tol}")
-    return max_abs
+    return max_abs, max_rel
 
 
 def tensor(a):
@@ -428,6 +449,33 @@ def move_scene():
     scene = PlasticineEnv.load_scene("move", 1)
     x_np, _ = build_particles(scene.shapes)
     return scene.with_n_particles(len(x_np)), x_np
+
+
+ORDERS = ("none", "sorted", "stale", "random")
+
+
+def scatter_orders(scene, x, v, seed):
+    """The four particle orders each scatter kernel is held to, for x and v
+    (n, 3) or (B, n, 3): none (the particles as they lie), the `cell_order`
+    of x (what an env step computes at its entry), a stale one (the
+    `cell_order` of the positions one env step of v earlier) and a random
+    permutation per env."""
+    import torch
+
+    from plasticinelab_tpu_torch.engine.transfer import cell_order
+
+    sim = scene.simulator
+    gen = torch.Generator().manual_seed(seed)
+    rand = torch.stack([torch.randperm(x.shape[-2], generator=gen)
+                        for _ in range(x.numel() // (3 * x.shape[-2]))])
+    rand = rand.reshape(x.shape[:-1]).to(device=x.device, dtype=torch.int32)
+    return {"none": None, "sorted": cell_order(scene, x),
+            "stale": cell_order(scene, x - sim.substeps * sim.dt * v), "random": rand}
+
+
+def worst(errs):
+    """The largest (max_abs, max_rel) of `compare`'s results."""
+    return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
 def test_poses(k, seed, center):
@@ -492,14 +540,18 @@ def phase_kernels():
     rec("stress_affine", compare("stress_affine", k(), p(), TOL["stress_affine"]), k, p,
            (C, F), n)
 
-    k = lambda: (cuda_transfer.p2g(scene, x, v, aff),)  # noqa: E731
+    # the scatters under each order; timed with the one an env step computes
+    orders = scatter_orders(scene, x, v, SEED)
+    k = lambda o=orders["sorted"]: (cuda_transfer.p2g(scene, x, v, aff, o),)  # noqa: E731
     p = lambda: (cuda_transfer.p2g_plain(scene, x, v, aff),)  # noqa: E731
-    rec("p2g", compare("p2g", k(), p(), TOL["p2g"]), k, p, (x, v, aff), n)
+    rec("p2g", worst([compare(f"p2g [order: {o}]", k(orders[o]), p(), TOL["p2g"])
+                      for o in ORDERS]), k, p, (x, v, aff, orders["sorted"]), n)
 
-    k = lambda: (cuda_transfer.grid_mass(scene, x),)  # noqa: E731
+    k = lambda o=orders["sorted"]: (cuda_transfer.grid_mass(scene, x, o),)  # noqa: E731
     p = lambda: (cuda_transfer.grid_mass_plain(scene, x),)  # noqa: E731
-    rec("grid_mass", compare("grid_mass (p2g MASS_ONLY)", k(), p(), TOL["grid_mass"]), k, p,
-           (x,), n)
+    rec("grid_mass", worst([compare(f"grid_mass (p2g MASS_ONLY) [order: {o}]", k(orders[o]), p(),
+                                    TOL["grid_mass"]) for o in ORDERS]), k, p,
+        (x, orders["sorted"]), n)
 
     k = lambda: cuda_transfer.g2p(scene, x, grid_v)  # noqa: E731
     p = lambda: cuda_transfer.g2p_plain(scene, x, grid_v)  # noqa: E731
@@ -600,9 +652,12 @@ def phase_backward():
 
     want, p = plain_vjp(lambda a, g: cuda_transfer.g2p_plain(scene, a, g), [x, grid_v],
                         [ct_v, ct_C, ct_x])
-    k = lambda: cuda_transfer.g2p_bwd(scene, x, grid_v, ct_v, ct_C, ct_x)  # noqa: E731
-    rec("g2p_bwd", compare("g2p_bwd (K6)", k(), want, BWD_TOL["g2p_bwd"]), k, p,
-           (x, Gathered(grid_v, share), ct_v, ct_C, ct_x), n)
+    orders = scatter_orders(scene, x, v, SEED + 1)
+    k = lambda o=orders["sorted"]: cuda_transfer.g2p_bwd(  # noqa: E731
+        scene, x, grid_v, ct_v, ct_C, ct_x, o)
+    rec("g2p_bwd", worst([compare(f"g2p_bwd (K6) [order: {o}]", k(orders[o]), want,
+                                  BWD_TOL["g2p_bwd"]) for o in ORDERS]), k, p,
+        (x, Gathered(grid_v, share), ct_v, ct_C, ct_x, orders["sorted"]), n)
 
     def grid_op_check(label, sc, g4, pf, pf1, pose_tol):
         """K8 backward vs the plain VJP: d grid4 rows (flips counted) and
@@ -880,7 +935,8 @@ def phase_voxelize():
         b_ms, b_by = bound("voxelize", [p, colors, kern()], p.shape[0] * m)
         log(f"  voxelize [{name}] wall ms/call: kernel {k_wall:.4f}  plain {p_wall:.4f}  "
             f"bound {b_ms:.5f} ({b_by}); {int((got != 0xFFFFFFFF).sum())} cells written")
-        results[name] = dict(max_abs_err=float((got - want).abs().max()), ms=k_wall,
+        max_abs = float((got - want).abs().max())
+        results[name] = dict(max_abs_err=max_abs, rel_err=max_abs / float(want.max()), ms=k_wall,
                              plain_ms=p_wall, bound_ms=b_ms, bound_by=b_by, library_ms=None,
                              calls=(kern, plain))
     # the frame grid's entry is profiled and logged with the others but is
@@ -1073,15 +1129,19 @@ def phase_vec_kernels():
         pf, pf1 = batch_poses(B, k, 300, center)
         softness = tensor(np.where(np.arange(B) % 2, 333.0, 666.0))
         env = lambda tree, b: tuple(t[b] for t in tree)  # noqa: E731
+        orders = scatter_orders(scene, x, v, SEED + 5)
+        srt = orders["sorted"]
+        # name -> (kernel(order), plain, what the call reads, items, the B = 1
+        # launch on env b, its tolerance: None = bit for bit)
         calls = {
             "p2g_batched": (
-                lambda: (cuda_transfer.p2g_batched(scene, x, v, aff),),
-                lambda: (cuda_transfer.p2g_plain_batched(scene, x, v, aff),), (x, v, aff), B * n,
-                lambda b: cuda_transfer.p2g(scene, x[b], v[b], aff[b]), TOL["p2g"]),
+                lambda o=srt: (cuda_transfer.p2g_batched(scene, x, v, aff, o),),
+                lambda: (cuda_transfer.p2g_plain_batched(scene, x, v, aff),), (x, v, aff, srt),
+                B * n, lambda b: cuda_transfer.p2g(scene, x[b], v[b], aff[b], srt[b]), TOL["p2g"]),
             "grid_mass_batched": (
-                lambda: (cuda_transfer.grid_mass_batched(scene, x),),
-                lambda: (cuda_transfer.grid_mass_plain_batched(scene, x),), (x,), B * n,
-                lambda b: cuda_transfer.grid_mass(scene, x[b]), TOL["grid_mass"]),
+                lambda o=srt: (cuda_transfer.grid_mass_batched(scene, x, o),),
+                lambda: (cuda_transfer.grid_mass_plain_batched(scene, x),), (x, srt), B * n,
+                lambda b: cuda_transfer.grid_mass(scene, x[b], srt[b]), TOL["grid_mass"]),
             "g2p_batched": (
                 lambda: cuda_transfer.g2p_batched(scene, x, grid_v),
                 lambda: cuda_transfer.g2p_plain_batched(scene, x, grid_v),
@@ -1096,9 +1156,12 @@ def phase_vec_kernels():
         }
         for name, (kern, plain, inputs, items, single, env_tol) in calls.items():
             base = BATCHED_FWD[name]
-            got = as_tuple(kern())
-            err = compare(f"{name} [B={B}]", got, as_tuple(plain()), TOL[base],
+            got, want = as_tuple(kern()), as_tuple(plain())
+            err = compare(f"{name} [B={B}]", got, want, TOL[base],
                           FLIP_BUDGET * B if base == "grid_op" else 0)
+            if base in ("p2g", "grid_mass"):  # the scatters: under every order
+                err = worst([err] + [compare(f"{name} [B={B}, order: {o}]", kern(orders[o]), want,
+                                             TOL[base]) for o in ORDERS if o != "sorted"])
             if B == VEC_B:
                 per_env(name, got, [single(b) for b in range(B)], env_tol)
             record(results, name if B == VEC_BATCHES[-1] else f"{name}[B={B}]", name, err, kern,
@@ -1263,6 +1326,8 @@ def phase_vec_backward():
             record(results, name if B == VEC_BATCHES[-1] else f"{name}[B={B}]", name, *args)
 
         share = touched_share(scene, x)  # of the grids that the gathers read
+        orders = scatter_orders(scene, x, v, SEED + 7)
+        srt = orders["sorted"]
         # name -> (kernel, batched plain version, inputs, cotangents, the B = 1
         # launch on env b, its tolerance per output: None = bit for bit, what
         # the call must read)
@@ -1278,11 +1343,12 @@ def phase_vec_backward():
                 lambda b: cuda_transfer.grid_mass_bwd(scene, x[b], ctm[b]), None,
                 (x, Gathered(ctm, share))),
             "g2p_bwd_batched": (
-                lambda: cuda_transfer.g2p_bwd(scene, x, grid_v, ct_v, ct_C, ct_x),
+                lambda o=srt: cuda_transfer.g2p_bwd(scene, x, grid_v, ct_v, ct_C, ct_x, o),
                 lambda a, g: cuda_transfer.g2p_plain_batched(scene, a, g), [x, grid_v],
                 [ct_v, ct_C, ct_x],
-                lambda b: cuda_transfer.g2p_bwd(scene, x[b], grid_v[b], ct_v[b], ct_C[b], ct_x[b]),
-                (None, BWD_TOL["g2p_bwd"]), (x, Gathered(grid_v, share), ct_v, ct_C, ct_x)),
+                lambda b: cuda_transfer.g2p_bwd(scene, x[b], grid_v[b], ct_v[b], ct_C[b], ct_x[b],
+                                                srt[b]),
+                (None, BWD_TOL["g2p_bwd"]), (x, Gathered(grid_v, share), ct_v, ct_C, ct_x, srt)),
         }
         for name, (kern, plain, inputs, cts, single, env_tol, read) in transfers.items():
             want, p = plain_vjp(plain, inputs, cts)
@@ -1290,6 +1356,11 @@ def phase_vec_backward():
             flat = lambda t: t.reshape((-1,) + t.shape[2:])  # noqa: E731
             err = compare(f"{name} [B={B}]", tuple(map(flat, got)), tuple(map(flat, want)),
                           BWD_TOL[BATCHED_BWD[name]])
+            if name == "g2p_bwd_batched":  # the scatter: under every order
+                err = worst([err] + [compare(f"{name} [B={B}, order: {o}]",
+                                             tuple(map(flat, kern(orders[o]))),
+                                             tuple(map(flat, want)), BWD_TOL["g2p_bwd"])
+                                     for o in ORDERS if o != "sorted"])
             if first:
                 per_env(name, got, [single(b) for b in range(B)], env_tol)
             rec(name, err, kern, p, read, B * n)
@@ -1328,6 +1399,100 @@ def phase_vec_backward():
     log(f"  device memory held for the device times (inputs and the plain VJPs' graphs): "
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     return results
+
+
+def scatter_inputs(scene, x_np, B, seed):
+    """Seeded inputs of the three scatter kernels for B envs of the cloud
+    x_np, each env's cloud moved by its own noise: x, v, affine, grid_v and
+    the cotangents of G2P's outputs, all with a leading B."""
+    n, G = len(x_np), scene.simulator.n_grid
+    rng = np.random.default_rng(seed)
+    x = tensor(np.clip(x_np + rng.uniform(-0.01, 0.01, (B, n, 3)), 0.0, 0.99))
+    return dict(x=x, v=tensor(rng.standard_normal((B, n, 3)) * 0.5),
+                aff=tensor(rng.standard_normal((B, n, 3, 3)) * 0.3),
+                grid_v=tensor(rng.standard_normal((B, G ** 3, 3)) * 0.5),
+                ct_v=tensor(rng.standard_normal((B, n, 3))),
+                ct_C=tensor(rng.standard_normal((B, n, 3, 3))),
+                ct_x=tensor(rng.standard_normal((B, n, 3))))
+
+
+def scatter_calls(scene, t, order):
+    """name -> a call of each scatter kernel on `scatter_inputs` t, walking
+    `order`."""
+    from plasticinelab_tpu_torch.engine import cuda_transfer
+
+    return {
+        "p2g": lambda: cuda_transfer.p2g_batched(scene, t["x"], t["v"], t["aff"], order),
+        "grid_mass": lambda: cuda_transfer.grid_mass_batched(scene, t["x"], order),
+        "g2p_bwd": lambda: cuda_transfer.g2p_bwd(scene, t["x"], t["grid_v"], t["ct_v"], t["ct_C"],
+                                                 t["ct_x"], order),
+    }
+
+
+def phase_scatter_cases():
+    """The scatter kernels (K3, K7 forward, K6) where grouping does not
+    help: a cloud spread over the whole domain, where hardly two particles
+    share a base cell so that nearly every lane adds alone, and a cloud in
+    two corners of the domain, whose base cells are clamped at both walls;
+    B = 2 envs of Move-v1's particle count, each under the four orders,
+    against the plain versions."""
+    import torch
+
+    from plasticinelab_tpu_torch.engine import cuda_transfer
+
+    scene, x_np = move_scene()
+    n, B = len(x_np), 2
+    rng = np.random.default_rng(SEED + 10)
+    clouds = {
+        "wide": rng.uniform(0.0, 0.99, (n, 3)),
+        "corners": np.concatenate([rng.uniform(0.0, 0.04, (n // 2, 3)),
+                                   rng.uniform(0.93, 0.99, (n - n // 2, 3))]),
+    }
+    log(f"phase scatter cases: B={B} envs of n={n} particles, seed {SEED + 10}")
+    for label, cloud in clouds.items():
+        t = scatter_inputs(scene, cloud, B, SEED + 11)
+        want = {"p2g": (cuda_transfer.p2g_plain_batched(scene, t["x"], t["v"], t["aff"]),),
+                "grid_mass": (cuda_transfer.grid_mass_plain_batched(scene, t["x"]),),
+                "g2p_bwd": plain_vjp(lambda a, g: cuda_transfer.g2p_plain_batched(scene, a, g),
+                                     [t["x"], t["grid_v"]], [t["ct_v"], t["ct_C"], t["ct_x"]])[0]}
+        tol = {"p2g": TOL["p2g"], "grid_mass": TOL["grid_mass"], "g2p_bwd": BWD_TOL["g2p_bwd"]}
+        flat = lambda u: u.reshape((-1,) + u.shape[2:])  # noqa: E731
+        for oname, order in scatter_orders(scene, t["x"], t["v"], SEED + 12).items():
+            left = float(cuda_transfer.lane_groups(scene, t["x"], order).sum()) / (B * n)
+            for name, call in scatter_calls(scene, t, order).items():
+                compare(f"{name} [{label}, order: {oname}, adds left {left:.3f}]",
+                        tuple(map(flat, as_tuple(call()))), tuple(map(flat, want[name])),
+                        tol[name])
+    torch.cuda.synchronize()
+
+
+def phase_scatter_times():
+    """Device ms per call (torch.profiler; the kernel and the memset of its
+    zeroed grid) of the scatter kernels at Move-v1 shapes for each B of
+    VEC_BATCHES under the order an env step computes, a stale one and none,
+    with the share of the global adds that is left after the lanes of a
+    warp that share a base cell have been summed (`lane_groups` / particles),
+    and what `cell_order` itself costs per env step."""
+    from plasticinelab_tpu_torch.engine import cuda_transfer
+    from plasticinelab_tpu_torch.engine.transfer import cell_order
+
+    scene, x_np = move_scene()
+    n = len(x_np)
+    log(f"phase scatter times: Move-v1 shapes, n={n}; device ms per call")
+    for B in VEC_BATCHES:
+        t = scatter_inputs(scene, x_np, B, SEED + 13)
+        orders = scatter_orders(scene, t["x"], t["v"], SEED + 14)
+        for oname in ("sorted", "stale", "none"):
+            order = orders[oname]
+            left = float(cuda_transfer.lane_groups(scene, t["x"], order).sum()) / (B * n)
+            times = {name: device_time(call)
+                     for name, call in scatter_calls(scene, t, order).items()}
+            log(f"  B={B:2d} order {oname:6s} adds left {left:.4f}: "
+                + "  ".join(f"{name} {ms:.4f}" for name, ms in times.items()))
+        ms, ops = device_ops(lambda: cell_order(scene, t["x"]))
+        log(f"  B={B:2d} cell_order: device {ms:.4f} ms, {ops:.1f} device operations, "
+            f"{wall_time(lambda: cell_order(scene, t['x'])):.4f} ms by CUDA events with the "
+            "host's launches, once per env step")
 
 
 def bench_actions(scene, B=None):
@@ -1527,6 +1692,7 @@ def main():
     phase_reference()
     launches, _ = phase_slice()
     results.update(phase_backward())
+    phase_scatter_cases()
     # the backward kernels' counts come from the trajectory gradient's run
     launches.update({k: v for k, v in phase_gradient().items() if k.endswith("_bwd")})
     phase_solve()
@@ -1541,6 +1707,7 @@ def main():
     results.update(phase_vec_backward())
     launches.update({k: vgrad["launches"][k] for k in BATCHED_BWD})
     # after the slice: an active profiler slows every later launch
+    phase_scatter_times()
     log("phase device times (torch.profiler, ms per call)")
     for k, r in results.items():
         k_dev, p_dev = (device_time(fn) for fn in r.pop("calls"))

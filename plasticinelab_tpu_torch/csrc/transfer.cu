@@ -3,7 +3,7 @@
 //
 // p2g_kernel<false>: port of plasticinelab_tpu/engine/pallas_local.py
 //   _p2g_fwd_kernel (K3): mom_s += W (p_mass v_s + dx affine_s . dpos),
-//   mass += W p_mass, by atomicAdd into a zeroed (G^3, 4) grid.
+//   mass += W p_mass, summed into a zeroed (G^3, 4) grid.
 // p2g_kernel<true>: the mass-only form, port of _mass_fwd_kernel (K7
 //   forward), into a zeroed (G^3,) grid.
 // g2p_kernel: port of _g2p_fwd_kernel (K5): v = sum W g,
@@ -13,11 +13,10 @@
 // p2g_bwd_kernel<true>: port of _mass_bwd_kernel (K7 backward, :970): d/dx
 //   of the mass-only P2G.
 // g2p_bwd_kernel: port of _g2p_bwd_kernel (K6, :388): the VJP of K5 ->
-//   d grid_v by atomicAdd into a zeroed (G^3, 3) grid, and dx, with the
-//   strict advection mask lo < x + dt v < hi of :450-477.
-// The backward kernels gather without atomics (K4, K7) or scatter like K3
-// (K6); the grids stay in L2. d/dx runs through the spline weights
-// (dW/dpx, chained by inv_dx) and through dpos = cell - px (d/dpx = -1).
+//   d grid_v summed into a zeroed (G^3, 3) grid like K3, and dx, a gather,
+//   with the strict advection mask lo < x + dt v < hi of :450-477.
+// d/dx runs through the spline weights (dW/dpx, chained by inv_dx) and
+// through dpos = cell - px (d/dpx = -1).
 //
 // The stencil follows plasticinelab_tpu/engine/transfer.py:99-119 with the
 // crop edge D = G and offset 0: base = floor(px - 0.5) clamped to
@@ -25,11 +24,38 @@
 // units. Flat cell index (i * G + j) * G + k, in 64 bits.
 //
 // Every kernel takes a batch of B envs of n particles each, env-major:
-// particle p belongs to env p / n and scatters into, or gathers from, that
-// env's grid at grid + env G^3 C. They replace the batched grids of the same
-// TPU kernels too (pallas_local.py:725 transfer_fns_batched: K3-b :767,
-// K4-b :780, K5-b :793, K6-b :805; :865 mass_fns_batched: K7-fwd-b :892,
-// K7-bwd-b :904). One env is B = 1.
+// a particle of env b scatters into, or gathers from, that env's grid at
+// grid + b G^3 C. They replace the batched grids of the same TPU kernels too
+// (pallas_local.py:725 transfer_fns_batched: K3-b :767, K4-b :780, K5-b
+// :793, K6-b :805; :865 mass_fns_batched: K7-fwd-b :892, K7-bwd-b :904).
+// One env is B = 1.
+//
+// The scatters (K3, K7 forward, K6's d grid_v). A cloud touches about one
+// cell in a hundred, so one float atomicAdd per particle, cell and channel
+// lands some hundred adds on every touched address, which the L2 serialises:
+// the L2's atomic unit, not bytes or arithmetic, bounds them. They therefore
+// reduce on the SM first:
+// - blocks of kScatterThreads consecutive entries of one env's particle
+//   order (grid: blocks x envs, so no warp mixes envs). The caller passes a
+//   permutation of each env's particles sorted by base cell
+//   (`engine/transfer.py` cell_order, computed once per env step), so the
+//   lanes of a warp hold runs of particles of one base cell. The state keeps
+//   its order: thread t reads particle order[t].
+// - lanes of a warp whose particles share a base cell share all 27 cells:
+//   they are found once with __match_any_sync, every contribution is summed
+//   over them with shuffles along a schedule built once per thread (a binary
+//   tree over the lanes of the group), and the group's first lane alone adds
+//   to global memory: about one add in six is left on a sorted cloud.
+// - a lane whose neighbours lie in other cells is a group of its own. So any
+//   order gives the same sums, a stale or no order (nullptr: the particles
+//   as they lie) only more global atomics.
+// - the add is a predicated `red`, never a branch (red_add_if).
+// Measured slower on the H100 and left out (PERF.md): a shared-memory tile
+// per block under the groups (its shared float atomics cost more than the
+// global ones they save), and the 4 channels of a cell as one 16-byte
+// vector atomic (dear where few lanes add to cells that neighbouring warps
+// add to at the same time).
+// Sums are taken in a run-dependent order: not bitwise reproducible.
 #include "common.cuh"
 
 namespace {
@@ -71,14 +97,107 @@ __device__ __forceinline__ long long env_grid(long long p, long long n_env, int 
   return (p / n_env) * GG * GG * GG * channels;
 }
 
+// ---------------------------------------------------------------------------
+// the scatters' reduction on the SM (see the header)
+// ---------------------------------------------------------------------------
+
+constexpr int kScatterThreads = 256;  // entries of an env's order per block
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kPeerRounds = 5;  // a group is at most a warp: 2^5 lanes
+
+// The particle a thread of a scatter block works on: entry `slot` of env
+// blockIdx.y's order (the identity without one). A thread past the env's
+// last particle is not `valid`: it computes on the env's first particle, so
+// that it can take part in the warp's shuffles, and adds and stores nothing.
+struct Slot {
+  bool valid;
+  long long q;  // index into the (B n) particle arrays
+};
+
+__device__ __forceinline__ Slot block_slot(const int* __restrict__ order, long long n) {
+  const long long env = blockIdx.y;
+  const long long slot = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  Slot s;
+  s.valid = slot < n;
+  const long long local = s.valid ? (order != nullptr ? order[env * n + slot] : slot) : 0;
+  s.q = env * n + local;
+  return s;
+}
+
+// The lanes of a warp whose particles share a base cell, and the schedule
+// by which their values are summed into the group's first lane, which
+// `adds` for all: in round r a lane whose rank in the group is a multiple of
+// 2^(r+1) adds the value of the lane of rank + 2^r, src[r] (-1: none).
+// `rounds` is the depth of the warp's largest group, so every lane shuffles
+// alike. A lane without a valid particle is a group of its own that adds
+// nothing.
+struct Peers {
+  int src[kPeerRounds];
+  int rounds;
+  bool adds;
+};
+
+__device__ __forceinline__ Peers make_peers(const Slot& me, const int base[3], int G) {
+  const unsigned lane = threadIdx.x & 31;
+  const int key = me.valid ? (base[0] * G + base[1]) * G + base[2] : -1 - static_cast<int>(lane);
+  const unsigned peers = __match_any_sync(kFullMask, key);
+  const int rank = __popc(peers & ((1u << lane) - 1u));
+  Peers g;
+  g.adds = rank == 0 && me.valid;
+  const int largest = __reduce_max_sync(kFullMask, __popc(peers));
+  g.rounds = 32 - __clz(largest - 1);
+  unsigned above = peers & ~((2u << lane) - 1u);  // the group's lanes above this one
+#pragma unroll
+  for (int r = 0; r < kPeerRounds; ++r) {
+    // `above` has lost its 2^r - 1 lowest lanes: its lowest is rank + 2^r
+    g.src[r] = ((rank & ((2 << r) - 1)) == 0 && above != 0u) ? __ffs(above) - 1 : -1;
+#pragma unroll
+    for (int drop = 0; drop < (1 << r); ++drop) above &= above - 1u;
+  }
+  return g;
+}
+
+// One global add of `val` by the lanes whose `adds` is set, as a predicated
+// `red` with no branch: a branch on `adds` would let the compiler split the
+// unrolled stencil loop into a copy per kind of lane, the warp would run
+// the copies diverged, and every shuffle of `peer_sum` would first have to
+// bring the warp together again (measured: 5x the kernel's time).
+__device__ __forceinline__ void red_add_if(bool adds, float* dst, float val) {
+  asm volatile(
+      "{\n"
+      "  .reg .pred p;\n"
+      "  setp.ne.s32 p, %0, 0;\n"
+      "  @p red.global.add.f32 [%1], %2;\n"
+      "}" ::"r"(static_cast<int>(adds)),
+      "l"(__cvta_generic_to_global(dst)), "f"(val));
+}
+
+// the sum of x over the lane's group, in its first lane
+__device__ __forceinline__ float peer_sum(const Peers& g, float x) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < kPeerRounds; ++r) {
+    if (r < g.rounds) {
+      const float other = __shfl_sync(kFullMask, x, g.src[r] < 0 ? lane : g.src[r]);
+      x += g.src[r] >= 0 ? other : 0.0f;
+    }
+  }
+  return x;
+}
+
+// grid: zeroed. Blocks of kScatterThreads, grid (blocks over n, B).
 template <bool MASS_ONLY>
-__global__ void p2g_kernel(const float* __restrict__ x, const float* __restrict__ v,
-                           const float* __restrict__ aff, float* __restrict__ grid, long long n,
-                           long long total, int G, float inv_dx, float dx, float p_mass) {
-  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= total) return;
-  grid += env_grid(p, n, G, MASS_ONLY ? 1 : 4);
+__global__ void __launch_bounds__(kScatterThreads)
+p2g_kernel(const float* __restrict__ x, const float* __restrict__ v,
+           const float* __restrict__ aff, const int* __restrict__ order,
+           float* __restrict__ grid, long long n, int G, float inv_dx, float dx, float p_mass) {
+  constexpr int C = MASS_ONLY ? 1 : 4;
+  const long long GG = G;
+  grid += blockIdx.y * GG * GG * GG * C;
+  const Slot me = block_slot(order, n);
+  const long long p = me.q;
   const Stencil s = make_stencil(x, p, G, inv_dx);
+  const Peers g = make_peers(me, s.base, G);
   float vp[3] = {0.0f, 0.0f, 0.0f}, A[3][3] = {};
   if (!MASS_ONLY) {
 #pragma unroll
@@ -88,7 +207,6 @@ __global__ void p2g_kernel(const float* __restrict__ x, const float* __restrict_
       for (int j = 0; j < 3; ++j) A[i][j] = aff[p * 9 + i * 3 + j];
     }
   }
-  const long long GG = G;
 #pragma unroll
   for (int a = 0; a < 3; ++a)
 #pragma unroll
@@ -97,18 +215,16 @@ __global__ void p2g_kernel(const float* __restrict__ x, const float* __restrict_
       for (int c = 0; c < 3; ++c) {
         const float W = s.w[a][0] * s.w[b][1] * s.w[c][2];
         const int ci = s.base[0] + a, cj = s.base[1] + b, ck = s.base[2] + c;
-        const long long cell = (ci * GG + cj) * GG + ck;
-        if (MASS_ONLY) {
-          atomicAdd(grid + cell, W * p_mass);
-        } else {
+        float* dst = grid + ((ci * GG + cj) * GG + ck) * C;
+        if (!MASS_ONLY) {
           const float dp[3] = {ci - s.px[0], cj - s.px[1], ck - s.px[2]};
 #pragma unroll
           for (int i = 0; i < 3; ++i) {
             const float mom = p_mass * vp[i] + dx * (A[i][0] * dp[0] + A[i][1] * dp[1] + A[i][2] * dp[2]);
-            atomicAdd(grid + cell * 4 + i, W * mom);
+            red_add_if(g.adds, dst + i, peer_sum(g, W * mom));
           }
-          atomicAdd(grid + cell * 4 + 3, W * p_mass);
         }
+        red_add_if(g.adds, dst + C - 1, peer_sum(g, W * p_mass));
       }
 }
 
@@ -221,17 +337,23 @@ __global__ void p2g_bwd_kernel(const float* __restrict__ x, const float* __restr
   }
 }
 
-__global__ void g2p_bwd_kernel(const float* __restrict__ x, const float* __restrict__ grid_v,
-                               const float* __restrict__ ct_v, const float* __restrict__ ct_C,
-                               const float* __restrict__ ct_x, float* __restrict__ gx,
-                               float* __restrict__ g_grid, long long n, long long total, int G,
-                               float inv_dx, float dt, float x_hi) {
-  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= total) return;
-  grid_v += env_grid(p, n, G, 3);
-  g_grid += env_grid(p, n, G, 3);
-  const Stencil s = make_stencil(x, p, G, inv_dx);
+// g_grid: zeroed. Blocks of kScatterThreads, grid (blocks over n, B). dx is
+// a gather per particle and does not depend on the order or on B.
+// Two blocks per SM cap it at 128 registers (it takes 255 uncapped and then
+// runs one block per SM: 0.1975 against 0.1432 ms at 32 envs on the H100).
+__global__ void __launch_bounds__(kScatterThreads, 2)
+g2p_bwd_kernel(const float* __restrict__ x, const float* __restrict__ grid_v,
+               const float* __restrict__ ct_v, const float* __restrict__ ct_C,
+               const float* __restrict__ ct_x, const int* __restrict__ order,
+               float* __restrict__ gx, float* __restrict__ g_grid, long long n, int G,
+               float inv_dx, float dt, float x_hi) {
   const long long GG = G;
+  grid_v += blockIdx.y * GG * GG * GG * 3;
+  g_grid += blockIdx.y * GG * GG * GG * 3;
+  const Slot me = block_slot(order, n);
+  const long long p = me.q;
+  const Stencil s = make_stencil(x, p, G, inv_dx);
+  const Peers g = make_peers(me, s.base, G);
   // the forward velocity, for the advection mask
   float vel[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
@@ -270,49 +392,61 @@ __global__ void g2p_bwd_kernel(const float* __restrict__ x, const float* __restr
         const int ci = s.base[0] + a, cj = s.base[1] + b, ck = s.base[2] + c;
         const long long cell = (ci * GG + cj) * GG + ck;
         const float dp[3] = {ci - s.px[0], cj - s.px[1], ck - s.px[2]};
-        float ge = 0.0f, gM[3] = {0.0f, 0.0f, 0.0f};
+        float ge = 0.0f, gM[3] = {0.0f, 0.0f, 0.0f}, val[3];
 #pragma unroll
         for (int i = 0; i < 3; ++i) {
-          const float g = __ldg(grid_v + cell * 3 + i);
+          const float gv = __ldg(grid_v + cell * 3 + i);
           const float e = cv[i] + cM[i][0] * dp[0] + cM[i][1] * dp[1] + cM[i][2] * dp[2];
-          atomicAdd(g_grid + cell * 3 + i, W * e);
-          ge += g * e;
+          val[i] = W * e;
+          ge += gv * e;
 #pragma unroll
-          for (int d = 0; d < 3; ++d) gM[d] += g * cM[i][d];
+          for (int d = 0; d < 3; ++d) gM[d] += gv * cM[i][d];
         }
+#pragma unroll
+        for (int i = 0; i < 3; ++i) val[i] = peer_sum(g, val[i]);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) red_add_if(g.adds, g_grid + cell * 3 + i, val[i]);
 #pragma unroll
         for (int d = 0; d < 3; ++d) gpx[d] += dW[d] * ge - W * gM[d];
       }
+  if (me.valid) {
 #pragma unroll
-  for (int d = 0; d < 3; ++d) gx[p * 3 + d] = inv_dx * gpx[d] + adv[d] * ct_x[p * 3 + d];
+    for (int d = 0; d < 3; ++d) gx[p * 3 + d] = inv_dx * gpx[d] + adv[d] * ct_x[p * 3 + d];
+  }
+}
+
+// blocks of kScatterThreads entries of one env's order x envs
+inline dim3 scatter_grid(long long n, int B) {
+  return dim3(static_cast<unsigned int>((n + kScatterThreads - 1) / kScatterThreads),
+              static_cast<unsigned int>(B));
 }
 
 }  // namespace
 
 // Every entry point takes B envs of n particles each (x (B, n, 3), grids and
 // their cotangents (B, G^3, C)); one env is B = 1.
-extern "C" int plb_p2g(const float* x, const float* v, const float* affine, float* grid4,
-                       long long n, int B, int G, float inv_dx, float dx, float p_mass,
-                       int device, void* stream) {
+// `order` (B, n) int32: per env a permutation of its particles, or nullptr
+// for the particles as they lie; any permutation gives the same sums.
+extern "C" int plb_p2g(const float* x, const float* v, const float* affine, const int* order,
+                       float* grid4, long long n, int B, int G, float inv_dx, float dx,
+                       float p_mass, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = n * B;
-  if (total > 0) {
-    p2g_kernel<false><<<plb::blocks_for(total), plb::kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(x, v, affine, grid4, n, total, G,
+  if (n > 0 && B > 0) {
+    p2g_kernel<false><<<scatter_grid(n, B), kScatterThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(x, v, affine, order, grid4, n, G,
                                                              inv_dx, dx, p_mass);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int plb_grid_mass(const float* x, float* grid_m, long long n, int B, int G,
-                             float inv_dx, float p_mass, int device, void* stream) {
+extern "C" int plb_grid_mass(const float* x, const int* order, float* grid_m, long long n, int B,
+                             int G, float inv_dx, float p_mass, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = n * B;
-  if (total > 0) {
-    p2g_kernel<true><<<plb::blocks_for(total), plb::kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(x, nullptr, nullptr, grid_m, n, total,
+  if (n > 0 && B > 0) {
+    p2g_kernel<true><<<scatter_grid(n, B), kScatterThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(x, nullptr, nullptr, order, grid_m, n,
                                                             G, inv_dx, 0.0f, p_mass);
   }
   return static_cast<int>(cudaGetLastError());
@@ -360,18 +494,16 @@ extern "C" int plb_grid_mass_bwd(const float* x, const float* ct, float* gx, lon
   return static_cast<int>(cudaGetLastError());
 }
 
-// g_grid (B, G^3, 3) comes in zeroed
+// g_grid (B, G^3, 3) comes in zeroed; `order` as in plb_p2g
 extern "C" int plb_g2p_bwd(const float* x, const float* grid_v, const float* ct_v,
-                           const float* ct_C, const float* ct_x, float* gx, float* g_grid,
-                           long long n, int B, int G, float inv_dx, float dt, float x_hi,
-                           int device, void* stream) {
+                           const float* ct_C, const float* ct_x, const int* order, float* gx,
+                           float* g_grid, long long n, int B, int G, float inv_dx, float dt,
+                           float x_hi, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = n * B;
-  if (total > 0) {
-    g2p_bwd_kernel<<<plb::blocks_for(total), plb::kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(x, grid_v, ct_v, ct_C, ct_x, gx, g_grid,
-                                                          n, total, G, inv_dx, dt, x_hi);
+  if (n > 0 && B > 0) {
+    g2p_bwd_kernel<<<scatter_grid(n, B), kScatterThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        x, grid_v, ct_v, ct_C, ct_x, order, gx, g_grid, n, G, inv_dx, dt, x_hi);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,7 +31,7 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "plasticinelab_tpu_tor
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 MAX_PRIMS = 8  # csrc/gridop.cu PLB_MAX_PRIMS
-THREADS = 256  # csrc/common.cuh kThreads: threads per block of every kernel
+THREADS = 256  # csrc/common.cuh kThreads: threads per block of the flat kernels
 
 
 class PrimTable(ctypes.Structure):
@@ -56,10 +56,11 @@ _SIGNATURES = {
     "plb_stress_affine": [_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _I, _P],
     # the transfers and the grid update, forward and backward, take B envs
     # (n particles each); one env is B = 1
-    # x, v, affine, grid4, n, B, G, inv_dx, dx, p_mass, device, stream
-    "plb_p2g": [_P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _I, _P],
-    # x, grid_m, n, B, G, inv_dx, p_mass, device, stream
-    "plb_grid_mass": [_P, _P, _L, _I, _I, _F, _F, _I, _P],
+    # (order: (B, n) int32 or null, the walk of the scatter kernels)
+    # x, v, affine, order, grid4, n, B, G, inv_dx, dx, p_mass, device, stream
+    "plb_p2g": [_P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _I, _P],
+    # x, order, grid_m, n, B, G, inv_dx, p_mass, device, stream
+    "plb_grid_mass": [_P, _P, _P, _L, _I, _I, _F, _F, _I, _P],
     # x, grid_v, new_v, new_C, new_x, n, B, G, inv_dx, dt, x_hi, device, stream
     "plb_g2p": [_P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _I, _P],
     # grid4, poses, softness (B,), grid_v, table, B, G, dx, dt, gravity xyz,
@@ -75,9 +76,9 @@ _SIGNATURES = {
     "plb_p2g_bwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _I, _P],
     # x, ct, gx, n, B, G, inv_dx, p_mass, device, stream
     "plb_grid_mass_bwd": [_P, _P, _P, _L, _I, _I, _F, _F, _I, _P],
-    # x, grid_v, ct_v, ct_C, ct_x, gx, g_grid, n, B, G, inv_dx, dt, x_hi,
-    # device, stream
-    "plb_g2p_bwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _I, _P],
+    # x, grid_v, ct_v, ct_C, ct_x, order, gx, g_grid, n, B, G, inv_dx, dt,
+    # x_hi, device, stream
+    "plb_g2p_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _I, _P],
     # grid4, poses, softness (B,), ct, dgrid4, dposes, partials, table, B, G,
     # dx, dt, gravity xyz, ground_friction, vmax, device, stream
     "plb_grid_op_bwd": [_P, _P, _P, _P, _P, _P, _P, PrimTable, _I, _I, _F, _F, _F, _F,

@@ -17,22 +17,35 @@ The TPU kernels contract per-axis weight matrices on the MXU inside a
 cropped, cell-sorted window layout, because a TPU has no fast scatter. On
 the H100 the natural form is the reference's own: one thread per particle,
 27 stencil cells (`csrc/transfer.cu`).
-- P2G is bound by the float atomics into the grid (27 cells x 4 channels per
-  particle, contended where particles share cells). The full 64^3 x 4 grid
-  is 4 MB and stays in the 50 MB L2, so the atomics resolve there.
+- The scatters (P2G, the mass-only P2G, K6's d grid_v) are bound by the
+  atomic unit of the L2, not by bytes or arithmetic: a cloud touches about
+  one cell in a hundred, so a float atomicAdd per particle, cell and
+  channel puts some hundred adds on each touched address. The kernels
+  reduce on the SM first: they walk each env's particles in `order`, a
+  permutation sorted by base cell (`transfer.cell_order`, computed once per
+  env step by `mpm.env_step`), so that the lanes of a warp hold runs of
+  particles of one base cell, which share all 27 cells; each run is found
+  with a warp match and summed with shuffles, and one lane adds for it.
+  A lane whose neighbours are in other cells adds alone, so the sums are
+  the same for any permutation: a stale order, or none (the identity),
+  costs time only. `lane_groups` counts the adds that remain. The state is
+  never permuted. (A shared-memory tile per block under the groups, and
+  16-byte vector atomics, were measured slower on this card: PERF.md.)
 - G2P is bound by the latency of its 27 dependent gathers per particle; the
   grid is read-only and L2-resident.
 - Atomics sum in a run-dependent order, so P2G and everything downstream
   is not bitwise reproducible (the TPU transfers are). The tests bound the
   difference to the plain version instead.
 - The backward gathers (K4, K7) read the L2-resident cotangent grid per
-  particle with no atomics; K6 scatters its grid cotangent like K3. The
-  dx terms run through the spline weight derivatives (chained by inv_dx)
-  and through dpos = cell - x inv_dx.
+  particle with no atomics; K6 scatters its grid cotangent like K3, through
+  the order of its forward call, and gathers dx per particle. The dx terms
+  run through the spline weight derivatives (chained by inv_dx) and through
+  dpos = cell - x inv_dx.
 
 Every kernel, forward and backward, takes a batch of envs (x (B, n, 3),
-grids and their cotangents (B, G^3, C)), one thread per particle of all
-envs, each scattering into or gathering from its own env's grid. So they
+grids and their cotangents (B, G^3, C), order (B, n)), one thread per
+particle of all envs, each scattering into or gathering from its own env's
+grid. So they
 also replace the batched grids of the same TPU kernels
 (`pallas_local.py:725` `transfer_fns_batched`: K3-b `:767`, K4-b `:780`,
 K5-b `:793`, K6-b `:805`; `:865` `mass_fns_batched`: K7-fwd-b `:892`,
@@ -42,9 +55,9 @@ the same autograd Functions. A launch over a leading B counts under
 `<name>_batched` (`p2g_bwd_batched`, ...), whatever B.
 
 Each wrapper takes its plain version (differentiable through index_add_
-and gather) only for a CPU tensor; for a CUDA tensor it launches its kernel
-(float32, contiguous) or raises, and so do the backwards. `launches` counts
-kernel launches per wrapper.
+and gather; it ignores `order`) only for a CPU tensor; for a CUDA tensor it
+launches its kernel (float32, contiguous) or raises, and so do the
+backwards. `launches` counts kernel launches per wrapper.
 """
 from __future__ import annotations
 
@@ -52,7 +65,9 @@ import torch
 
 from ..config.spec import SceneSpec
 from . import cuda_build as cb
-from .transfer import stencil
+from .transfer import cell_keys, stencil
+
+WARP = 32  # lanes of a warp: consecutive entries of an env's order that may add as one
 
 launches = {"p2g": 0, "grid_mass": 0, "g2p": 0, "p2g_bwd": 0, "grid_mass_bwd": 0,
             "g2p_bwd": 0, "p2g_batched": 0, "grid_mass_batched": 0, "g2p_batched": 0,
@@ -78,11 +93,12 @@ def _batched_stencil(scene: SceneSpec, x):
     return idx + env_row[:, None], W, dpos
 
 
-def p2g_plain_batched(scene: SceneSpec, x, v, affine):
+def p2g_plain_batched(scene: SceneSpec, x, v, affine, order=None):
     """APIC momentum + mass P2G of B envs, x and v (B, n, 3), affine (B, n,
     3, 3) -> (B, G^3, 4) [mom x, y, z, mass]: mom_s = sum_p W (p_mass v_s +
     dx affine_s . dpos), mass = sum_p W p_mass (reference p2g :157-184), one
-    index_add_ into the flat (B G^3, 4) grid."""
+    index_add_ into the flat (B G^3, 4) grid. `order` is the kernels' and
+    does not change a sum: ignored here, as in every plain version."""
     sim = scene.simulator
     B, n = x.shape[:2]
     G3 = sim.n_grid ** 3
@@ -94,13 +110,13 @@ def p2g_plain_batched(scene: SceneSpec, x, v, affine):
     return grid.reshape(B, G3, 4)
 
 
-def p2g_plain(scene: SceneSpec, x, v, affine):
+def p2g_plain(scene: SceneSpec, x, v, affine, order=None):
     """`p2g_plain_batched` of one env: x, v (n, 3), affine (n, 3, 3) -> (G^3,
     4)."""
     return p2g_plain_batched(scene, x[None], v[None], affine[None])[0]
 
 
-def grid_mass_plain_batched(scene: SceneSpec, x):
+def grid_mass_plain_batched(scene: SceneSpec, x, order=None):
     """Mass-only P2G of B envs, x (B, n, 3) -> (B, G^3) (reference
     compute_grid_m_kernel :382-392)."""
     B = x.shape[0]
@@ -111,12 +127,12 @@ def grid_mass_plain_batched(scene: SceneSpec, x):
         B, G3)
 
 
-def grid_mass_plain(scene: SceneSpec, x):
+def grid_mass_plain(scene: SceneSpec, x, order=None):
     """`grid_mass_plain_batched` of one env: x (n, 3) -> (G^3,)."""
     return grid_mass_plain_batched(scene, x[None])[0]
 
 
-def g2p_plain_batched(scene: SceneSpec, x, grid_v):
+def g2p_plain_batched(scene: SceneSpec, x, grid_v, order=None):
     """Velocity gather, APIC C and advection of B envs, x (B, n, 3), grid_v
     (B, G^3, 3) -> (new_v (B, n, 3), new_C (B, n, 3, 3), new_x (B, n, 3)):
     v = sum W g, C = 4 inv_dx sum W g dpos^T, x' = clip(x + dt v, 0, 1 - 3
@@ -136,10 +152,30 @@ def g2p_plain_batched(scene: SceneSpec, x, grid_v):
     return new_v.reshape(B, n, 3), new_C.reshape(B, n, 3, 3), new_x.reshape(B, n, 3)
 
 
-def g2p_plain(scene: SceneSpec, x, grid_v):
+def g2p_plain(scene: SceneSpec, x, grid_v, order=None):
     """`g2p_plain_batched` of one env: x (n, 3), grid_v (G^3, 3) -> (new_v
     (n, 3), new_C (n, 3, 3), new_x (n, 3))."""
     return tuple(t[0] for t in g2p_plain_batched(scene, x[None], grid_v[None]))
+
+
+def lane_groups(scene: SceneSpec, x, order=None):
+    """The scatter kernels' grouping rule, in plain PyTorch: the number of
+    lane groups that add to global memory when particles x (n, 3) or (B, n,
+    3) are walked in `order` (None: as they lie) -> a 0-d or (B,) int64
+    tensor. A warp takes `WARP` consecutive entries of one env's order (the
+    blocks are whole warps and start at multiples of it); its entries of
+    equal base cell form one group, wherever they stand in the warp
+    (`csrc/transfer.cu` make_peers). Each group makes 27 x channels global
+    adds, so groups / n is the share that remains of the adds of one thread
+    per particle."""
+    keys = cell_keys(scene, x if x.dim() == 3 else x[None]).long()
+    B, n = keys.shape
+    if order is not None:
+        keys = torch.gather(keys, 1, order.reshape(B, n).long())
+    warp = torch.arange(n, device=x.device) // WARP
+    pairs = warp * scene.simulator.n_grid ** 3 + keys  # (B, n): one value per (warp, cell)
+    counts = torch.tensor([torch.unique(row).numel() for row in pairs])
+    return counts if x.dim() == 3 else counts[0]
 
 
 # ---------------------------------------------------------------------------
@@ -161,7 +197,21 @@ def _check_particles(x, v, affine):
         cb.require(t, name, shape, x.device)
 
 
-def _launch_p2g(scene: SceneSpec, x, v, affine):
+def _order_ptr(order, x) -> int:
+    """The pointer a scatter kernel takes for `order`: 0 (the particles as
+    they lie) for None, else that of an int32, contiguous tensor of x's
+    leading shape on x's device, per env a permutation of range(n)."""
+    if order is None:
+        return 0
+    cb.require(order, "order", x.shape[:-1], x.device)
+    if order.dtype != torch.int32:
+        raise TypeError(f"order: the kernel takes int32, got {order.dtype}")
+    if not order.is_contiguous():
+        raise ValueError("order: the kernel takes contiguous tensors")
+    return order.data_ptr()
+
+
+def _launch_p2g(scene: SceneSpec, x, v, affine, order=None):
     """K3 over x (n, 3) -> (G^3, 4), or over B envs x (B, n, 3) -> (B, G^3, 4)."""
     for t, arg in ((x, "x"), (v, "v"), (affine, "affine")):
         cb.require_kernel_input(t, arg)
@@ -170,8 +220,8 @@ def _launch_p2g(scene: SceneSpec, x, v, affine):
     grid = torch.zeros(x.shape[:-2] + (sim.n_grid ** 3, 4), device=x.device,
                        dtype=torch.float32)
     err = cb.library().plb_p2g(
-        x.data_ptr(), v.data_ptr(), affine.data_ptr(), grid.data_ptr(), n, B,
-        sim.n_grid, sim.inv_dx, sim.dx, sim.p_mass, x.device.index,
+        x.data_ptr(), v.data_ptr(), affine.data_ptr(), _order_ptr(order, x), grid.data_ptr(),
+        n, B, sim.n_grid, sim.inv_dx, sim.dx, sim.p_mass, x.device.index,
         cb.stream_of(x))
     name = cb.launch_key("p2g", x)
     cb.check(err, name)
@@ -201,30 +251,30 @@ def p2g_bwd(scene: SceneSpec, x, v, affine, ct):
 
 
 class P2G(torch.autograd.Function):
-    """(x, v, affine) -> grid4: forward K3, backward K4 (saves x, v, affine);
-    one env or B envs."""
+    """(x, v, affine) -> grid4: forward K3 walking `order`, backward K4
+    (saves x, v, affine); one env or B envs."""
 
     @staticmethod
-    def forward(ctx, x, v, affine, scene):
+    def forward(ctx, x, v, affine, order, scene):
         ctx.scene = scene
         ctx.save_for_backward(x, v, affine)
-        return _launch_p2g(scene, x, v, affine)
+        return _launch_p2g(scene, x, v, affine, order)
 
     @staticmethod
     def backward(ctx, ct):
         x, v, affine = ctx.saved_tensors
-        return (*p2g_bwd(ctx.scene, x, v, affine, ct.contiguous()), None)
+        return (*p2g_bwd(ctx.scene, x, v, affine, ct.contiguous()), None, None)
 
 
-def _launch_grid_mass(scene: SceneSpec, x):
+def _launch_grid_mass(scene: SceneSpec, x, order=None):
     """K7 forward over x (n, 3) -> (G^3,), or over x (B, n, 3) -> (B, G^3)."""
     cb.require_kernel_input(x, "x")
     sim = scene.simulator
     B, n = _envs(x)
     grid = torch.zeros(x.shape[:-2] + (sim.n_grid ** 3,), device=x.device, dtype=torch.float32)
     err = cb.library().plb_grid_mass(
-        x.data_ptr(), grid.data_ptr(), n, B, sim.n_grid, sim.inv_dx, sim.p_mass,
-        x.device.index, cb.stream_of(x))
+        x.data_ptr(), _order_ptr(order, x), grid.data_ptr(), n, B, sim.n_grid, sim.inv_dx,
+        sim.p_mass, x.device.index, cb.stream_of(x))
     name = cb.launch_key("grid_mass", x)
     cb.check(err, name)
     launches[name] += 1
@@ -252,18 +302,19 @@ def grid_mass_bwd(scene: SceneSpec, x, ct):
 
 
 class GridMass(torch.autograd.Function):
-    """x -> grid_m: forward K7, backward K7-bwd (saves x); one env or B envs."""
+    """x -> grid_m: forward K7 walking `order`, backward K7-bwd (saves x);
+    one env or B envs."""
 
     @staticmethod
-    def forward(ctx, x, scene):
+    def forward(ctx, x, order, scene):
         ctx.scene = scene
         ctx.save_for_backward(x)
-        return _launch_grid_mass(scene, x)
+        return _launch_grid_mass(scene, x, order)
 
     @staticmethod
     def backward(ctx, ct):
         (x,) = ctx.saved_tensors
-        return grid_mass_bwd(ctx.scene, x, ct.contiguous()), None
+        return grid_mass_bwd(ctx.scene, x, ct.contiguous()), None, None
 
 
 def _launch_g2p(scene: SceneSpec, x, grid_v):
@@ -293,11 +344,12 @@ def _check_g2p(scene: SceneSpec, x, grid_v):
     cb.require(grid_v, "grid_v", x.shape[:-2] + (scene.simulator.n_grid ** 3, 3), x.device)
 
 
-def g2p_bwd(scene: SceneSpec, x, grid_v, ct_v, ct_C, ct_x):
+def g2p_bwd(scene: SceneSpec, x, grid_v, ct_v, ct_C, ct_x, order=None):
     """The K6 kernel: cotangents of (new_v, new_C, new_x) -> (dx (n, 3),
     d grid_v (G^3, 3)), the VJP of `g2p_plain` away from the clamp's ties;
     with a leading B on every tensor, of `g2p_plain_batched`, in one launch.
-    CUDA tensors only."""
+    It scatters d grid_v walking `order`; dx does not depend on it. CUDA
+    tensors only."""
     sim = scene.simulator
     B, n = _envs(x)
     _check_g2p(scene, x, grid_v)
@@ -311,8 +363,8 @@ def g2p_bwd(scene: SceneSpec, x, grid_v, ct_v, ct_C, ct_x):
     g_grid = torch.zeros_like(grid_v)
     err = cb.library().plb_g2p_bwd(
         x.data_ptr(), grid_v.data_ptr(), ct_v.data_ptr(), ct_C.data_ptr(),
-        ct_x.data_ptr(), gx.data_ptr(), g_grid.data_ptr(), n, B, sim.n_grid, sim.inv_dx,
-        sim.dt, 1.0 - 3 * sim.dx, x.device.index, cb.stream_of(x))
+        ct_x.data_ptr(), _order_ptr(order, x), gx.data_ptr(), g_grid.data_ptr(), n, B,
+        sim.n_grid, sim.inv_dx, sim.dt, 1.0 - 3 * sim.dx, x.device.index, cb.stream_of(x))
     name = cb.launch_key("g2p_bwd", x)
     cb.check(err, name)
     launches[name] += 1
@@ -320,12 +372,12 @@ def g2p_bwd(scene: SceneSpec, x, grid_v, ct_v, ct_C, ct_x):
 
 
 class G2P(torch.autograd.Function):
-    """(x, grid_v) -> (new_v, new_C, new_x): forward K5, backward K6 (saves
-    x, grid_v); one env or B envs."""
+    """(x, grid_v) -> (new_v, new_C, new_x): forward K5, backward K6 walking
+    the forward call's `order` (saves x, grid_v); one env or B envs."""
 
     @staticmethod
-    def forward(ctx, x, grid_v, scene):
-        ctx.scene = scene
+    def forward(ctx, x, grid_v, order, scene):
+        ctx.scene, ctx.order = scene, order
         ctx.save_for_backward(x, grid_v)
         return _launch_g2p(scene, x, grid_v)
 
@@ -333,8 +385,8 @@ class G2P(torch.autograd.Function):
     def backward(ctx, ct_v, ct_C, ct_x):
         x, grid_v = ctx.saved_tensors
         gx, g_grid = g2p_bwd(ctx.scene, x, grid_v, ct_v.contiguous(), ct_C.contiguous(),
-                             ct_x.contiguous())
-        return gx, g_grid, None
+                             ct_x.contiguous(), ctx.order)
+        return gx, g_grid, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -346,63 +398,65 @@ def _require_dim(x, dim: int, what: str):
         raise ValueError(f"x: expected {what}, got {tuple(x.shape)}")
 
 
-def p2g(scene: SceneSpec, x, v, affine):
+def p2g(scene: SceneSpec, x, v, affine, order=None):
     """-> grid4 (G^3, 4); the K3 kernel (backward K4) on CUDA, `p2g_plain`
-    on the CPU."""
+    on the CPU. order: `transfer.cell_order` of these or of earlier
+    positions, or None; it changes the kernel's time, not the sums."""
     _require_dim(x, 2, "(n, 3)")
     _check_particles(x, v, affine)
     if x.device.type == "cpu":
         return p2g_plain(scene, x, v, affine)
-    return P2G.apply(x, v, affine, scene)
+    return P2G.apply(x, v, affine, order, scene)
 
 
-def grid_mass(scene: SceneSpec, x):
+def grid_mass(scene: SceneSpec, x, order=None):
     """-> grid_m (G^3,); the mass-only P2G kernel (K7 forward, backward K7
-    backward) on CUDA, `grid_mass_plain` on the CPU."""
+    backward) on CUDA, `grid_mass_plain` on the CPU. order as in `p2g`."""
     cb.require(x, "x", (x.shape[0], 3), x.device)
     if x.device.type == "cpu":
         return grid_mass_plain(scene, x)
-    return GridMass.apply(x, scene)
+    return GridMass.apply(x, order, scene)
 
 
-def g2p(scene: SceneSpec, x, grid_v):
-    """-> (new_v, new_C, new_x); the K5 kernel (backward K6) on CUDA,
-    `g2p_plain` on the CPU."""
+def g2p(scene: SceneSpec, x, grid_v, order=None):
+    """-> (new_v, new_C, new_x); the K5 kernel (backward K6, which scatters
+    walking `order`, as in `p2g`) on CUDA, `g2p_plain` on the CPU."""
     _require_dim(x, 2, "(n, 3)")
     _check_g2p(scene, x, grid_v)
     if x.device.type == "cpu":
         return g2p_plain(scene, x, grid_v)
-    return G2P.apply(x, grid_v, scene)
+    return G2P.apply(x, grid_v, order, scene)
 
 
-def p2g_batched(scene: SceneSpec, x, v, affine):
+def p2g_batched(scene: SceneSpec, x, v, affine, order=None):
     """x, v (B, n, 3), affine (B, n, 3, 3) -> grid4 (B, G^3, 4); the K3
     kernel over B envs (backward K4 over B envs) on CUDA,
-    `p2g_plain_batched` on the CPU."""
+    `p2g_plain_batched` on the CPU. order (B, n) as in `p2g`, per env."""
     _require_dim(x, 3, "(B, n, 3)")
     _check_particles(x, v, affine)
     if x.device.type == "cpu":
         return p2g_plain_batched(scene, x, v, affine)
-    return P2G.apply(x, v, affine, scene)
+    return P2G.apply(x, v, affine, order, scene)
 
 
-def grid_mass_batched(scene: SceneSpec, x):
+def grid_mass_batched(scene: SceneSpec, x, order=None):
     """x (B, n, 3) -> grid_m (B, G^3); the K7 forward kernel over B envs
     (backward K7 backward over B envs) on CUDA, `grid_mass_plain_batched` on
-    the CPU."""
+    the CPU. order (B, n) as in `p2g`, per env."""
     _require_dim(x, 3, "(B, n, 3)")
     cb.require(x, "x", (x.shape[0], x.shape[1], 3), x.device)
     if x.device.type == "cpu":
         return grid_mass_plain_batched(scene, x)
-    return GridMass.apply(x, scene)
+    return GridMass.apply(x, order, scene)
 
 
-def g2p_batched(scene: SceneSpec, x, grid_v):
+def g2p_batched(scene: SceneSpec, x, grid_v, order=None):
     """x (B, n, 3), grid_v (B, G^3, 3) -> (new_v, new_C, new_x) with a
-    leading B; the K5 kernel over B envs (backward K6 over B envs) on CUDA,
-    `g2p_plain_batched` on the CPU."""
+    leading B; the K5 kernel over B envs (backward K6 over B envs, which
+    scatters walking `order` (B, n)) on CUDA, `g2p_plain_batched` on the
+    CPU."""
     _require_dim(x, 3, "(B, n, 3)")
     _check_g2p(scene, x, grid_v)
     if x.device.type == "cpu":
         return g2p_plain_batched(scene, x, grid_v)
-    return G2P.apply(x, grid_v, scene)
+    return G2P.apply(x, grid_v, order, scene)

@@ -14,7 +14,13 @@ A substep runs, in order:
 5. G2P with advection: `cuda_transfer.g2p` (K5).
 An env step is a Python loop of `substeps` substeps; `env_step_with_grid_m`
 adds the mass-only P2G of the final positions for the loss
-(`cuda_transfer.grid_mass`, K7 forward). Each of these dispatches to its
+(`cuda_transfer.grid_mass`, K7 forward). At its entry an env step sorts the
+particles' indices by base cell (`transfer.cell_order`, as the reference
+sorts once per env step, `mpm.py:545-546`, `:748-752`) and hands that order
+to the transfers of all its substeps and to the final mass P2G: the scatter
+kernels walk the particles in it. The state is not permuted, and the sums
+do not depend on the order, so it may go stale within the step. Each of
+these dispatches to its
 CUDA kernel for CUDA tensors and to its plain version on the CPU.
 `PLAIN_OPS` runs the same steps through the plain versions on any device,
 to hold the kernels against them. Both are differentiable in the state and
@@ -24,7 +30,7 @@ through torch.autograd.
 
 `env_step_batched` steps B envs at once, states with a leading B, the
 counterpart of `mpm.py:629-795` (`substep_rows_batched`,
-`env_step_batched`) without the sort, crop and windows: stress on the B n
+`env_step_batched`) without the crop and windows: stress on the B n
 particles, then the batched kernels (`KERNEL_OPS_BATCHED`: K3, K8 forward
 and K5 over B envs, K7 forward for the loss), each launched once per
 substep for the whole batch. Controls and forward kinematics run over the
@@ -44,6 +50,7 @@ from ..config.spec import SceneSpec
 from . import cuda_gridop, cuda_stress, cuda_transfer
 from . import primitives as prim
 from .state import Controls, Materials, SimState
+from .transfer import cell_order
 
 __all__ = ["Ops", "KERNEL_OPS", "PLAIN_OPS", "KERNEL_OPS_BATCHED", "PLAIN_OPS_BATCHED",
            "make_controls", "make_controls_batched", "fk_step", "substep", "substep_batched",
@@ -131,48 +138,55 @@ def fk_step(scene: SceneSpec, poses, ctrl: Controls):
 
 
 def substep(scene: SceneSpec, mats: Materials, state: SimState, ctrl: Controls,
-            softness: float, ops: Ops = KERNEL_OPS) -> SimState:
-    """One MLS-MPM substep (reference substep :245-257)."""
+            softness: float, ops: Ops = KERNEL_OPS, order=None) -> SimState:
+    """One MLS-MPM substep (reference substep :245-257). order: the env
+    step's `cell_order`, which the scatter kernels walk (None: the particles
+    as they lie)."""
     new_F, affine = ops.stress_affine(scene, mats, state.C, state.F)
-    grid4 = ops.p2g(scene, state.x, state.v, affine)
+    grid4 = ops.p2g(scene, state.x, state.v, affine, order)
     pose_f = (state.prim_pos, state.prim_rot, state.prim_gap)
     pose_f1 = fk_step(scene, pose_f, ctrl)
     grid_v = ops.grid_op(scene, grid4, pose_f, pose_f1, softness)
-    new_v, new_C, new_x = ops.g2p(scene, state.x, grid_v)
+    new_v, new_C, new_x = ops.g2p(scene, state.x, grid_v, order)
     return SimState(x=new_x, v=new_v, C=new_C, F=new_F, prim_pos=pose_f1[0],
                     prim_rot=pose_f1[1], prim_gap=pose_f1[2])
 
 
 def env_step(scene: SceneSpec, mats: Materials, state: SimState, action,
-             softness: float, ops: Ops = KERNEL_OPS) -> SimState:
+             softness: float, ops: Ops = KERNEL_OPS, order=None) -> SimState:
     """One environment step = `substeps` substeps under constant manipulator
-    velocities (reference MPMSimulator.step :365-376)."""
+    velocities (reference MPMSimulator.step :365-376), all walking the
+    particles in `order`, by default the `cell_order` of the entry state."""
+    if order is None:
+        order = cell_order(scene, state.x)
     ctrl = make_controls(scene, action, state.x.device, state.x.dtype)
     for _ in range(scene.simulator.substeps):
-        state = substep(scene, mats, state, ctrl, softness, ops)
+        state = substep(scene, mats, state, ctrl, softness, ops, order)
     return state
 
 
 def env_step_with_grid_m(scene: SceneSpec, mats: Materials, state: SimState,
                          action, softness: float, ops: Ops = KERNEL_OPS):
     """env_step plus the final state's grid mass for the loss:
-    (new_state, grid_m (G^3,))."""
-    state = env_step(scene, mats, state, action, softness, ops)
-    return state, ops.grid_mass(scene, state.x)
+    (new_state, grid_m (G^3,)), the mass P2G too in the entry state's order."""
+    order = cell_order(scene, state.x)
+    state = env_step(scene, mats, state, action, softness, ops, order)
+    return state, ops.grid_mass(scene, state.x, order)
 
 
 def substep_batched(scene: SceneSpec, mats: Materials, states: SimState, ctrl: Controls,
-                    softness, ops: Ops = KERNEL_OPS_BATCHED) -> SimState:
+                    softness, ops: Ops = KERNEL_OPS_BATCHED, order=None) -> SimState:
     """One substep of B envs (states and ctrl with a leading B, softness
-    (B,)) (`mpm.py:substep_rows_batched`, :629-689)."""
+    (B,), order (B, n) as in `substep`) (`mpm.py:substep_rows_batched`,
+    :629-689)."""
     B, n = states.x.shape[:2]
     new_F, affine = ops.stress_affine(scene, mats, states.C.reshape(B * n, 3, 3),
                                       states.F.reshape(B * n, 3, 3))
-    grid4 = ops.p2g(scene, states.x, states.v, affine.reshape(B, n, 3, 3))
+    grid4 = ops.p2g(scene, states.x, states.v, affine.reshape(B, n, 3, 3), order)
     pose_f = (states.prim_pos, states.prim_rot, states.prim_gap)
     pose_f1 = fk_step(scene, pose_f, ctrl)
     grid_v = ops.grid_op(scene, grid4, pose_f, pose_f1, softness)
-    new_v, new_C, new_x = ops.g2p(scene, states.x, grid_v)
+    new_v, new_C, new_x = ops.g2p(scene, states.x, grid_v, order)
     return SimState(x=new_x, v=new_v, C=new_C, F=new_F.reshape(B, n, 3, 3),
                     prim_pos=pose_f1[0], prim_rot=pose_f1[1], prim_gap=pose_f1[2])
 
@@ -182,15 +196,18 @@ def env_step_batched(scene: SceneSpec, mats: Materials, states: SimState, action
     """One env step of B envs: states with a leading B, actions (B,
     action_dim), softness a scalar or (B,) -> new states and, with
     `want_grid_m`, their grid mass (B, G^3) for the loss (`mpm.py:715-795`
-    on the full grid: no sort, crop or windows)."""
+    on the full grid: no crop or windows, and of the sort only the order,
+    each env's `cell_order` at entry, which all substeps and the mass P2G
+    walk)."""
     x = states.x
     B = x.shape[0]
+    order = cell_order(scene, x)
     ctrl = make_controls_batched(scene, actions, x.device, x.dtype)
     softness = torch.as_tensor(softness, dtype=x.dtype, device=x.device).expand(B).contiguous()
     for _ in range(scene.simulator.substeps):
-        states = substep_batched(scene, mats, states, ctrl, softness, ops)
+        states = substep_batched(scene, mats, states, ctrl, softness, ops, order)
     if want_grid_m:
-        return states, ops.grid_mass(scene, states.x)
+        return states, ops.grid_mass(scene, states.x, order)
     return states
 
 

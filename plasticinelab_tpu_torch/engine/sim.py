@@ -326,3 +326,6 @@ class PhysicsEnv:
             img = self._visual_obs_fn(*self._state_args()).cpu().numpy()
         return np.uint8(np.clip(img, 0, 1) * 255)
 
+
+# Alias for users porting from the reference
+TaichiEnv = PhysicsEnv

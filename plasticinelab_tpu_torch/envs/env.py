@@ -112,3 +112,8 @@ class PlasticineEnv:
 
     def render(self, mode="rgb_array"):
         return self.taichi_env.render(mode)
+
+    def seed(self, seed=None):
+        """Seeds numpy's global generator, from which `Solver.init_actions`
+        draws (legacy gym; `plasticinelab_tpu/envs/env.py:104-105`)."""
+        np.random.seed(seed)

@@ -247,7 +247,8 @@ def solve_action(env, path, logger, args):
     step into `path`: a PNG through cv2 where it is importable, else a
     `.npy` of the (H, W, 3) uint8 frame. args: num_steps (rollout steps in
     all, so n_iters = ceil(num_steps / episode length)), softness, lr,
-    optim."""
+    optim, and optionally host_loop: true takes `Solver.solve` (the host
+    optimizers), else `Solver.solve_device`."""
     os.makedirs(path, exist_ok=True)
     env.reset()
     taichi_env: PhysicsEnv = env.unwrapped.taichi_env
@@ -257,7 +258,10 @@ def solve_action(env, path, logger, args):
         n_iters=(args.num_steps + T - 1) // T, softness=args.softness, horizon=T,
         **{"optim.lr": args.lr, "optim.type": args.optim, "init_range": 0.0001},
     )
-    action = solver.solve_device()
+    if getattr(args, "host_loop", False):
+        action = solver.solve()
+    else:
+        action = solver.solve_device()
 
     try:
         import cv2

@@ -120,3 +120,64 @@ def test_solve_action_writes_one_image_per_step(tmp_path):
     if files[0].endswith(".npy"):
         img = np.load(tmp_path / files[0])
         assert img.shape == (48, 48, 3) and img.dtype == np.uint8
+
+
+@pytest.mark.parametrize("host_loop", [False, True])
+def test_solve_action_honours_host_loop(tmp_path, monkeypatch, host_loop):
+    """`args.host_loop` takes `Solver.solve` (the host optimizers), its
+    absence or False `Solver.solve_device`, as the reference package's
+    `solve_action` (`optimizer/solver.py:318-321`); both return finite
+    actions of the episode's shape and a finite best loss."""
+    from plasticinelab_tpu_torch.optimizer.solver import Solver
+
+    taken = []
+    for name in ("solve", "solve_device"):
+        real = getattr(Solver, name)
+
+        def spy(self, *a, _real=real, _name=name, **kw):
+            taken.append(_name)
+            spy.solver = self
+            return _real(self, *a, **kw)
+
+        monkeypatch.setattr(Solver, name, spy)
+    env = PlasticineEnv(_tiny_scene(tspec, "float64"), device="cpu", max_episode_steps=2)
+    args = SimpleNamespace(num_steps=4, softness=666.0, lr=0.1, optim="Adam")
+    if host_loop:
+        args.host_loop = True
+    actions = solve_action(env, str(tmp_path), None, args)
+    assert taken == ["solve" if host_loop else "solve_device"]
+    assert actions.shape == (2, 3) and np.isfinite(actions).all()
+    assert np.isfinite(spy.solver.best_loss)
+    assert len(os.listdir(tmp_path)) == 2
+
+
+def test_env_seed_seeds_the_solvers_initial_actions():
+    """`PlasticineEnv.seed` seeds numpy's global generator as the reference
+    package's env does (`envs/env.py:104-105`): two envs seeded alike give
+    equal `Solver.init_actions`, equal to the reference package's after the
+    same seed, and another seed gives others."""
+    from plasticinelab_tpu.envs.env import PlasticineEnv as JaxEnv
+    from plasticinelab_tpu.optimizer.solver import Solver as JaxSolver, SolverConfig as JaxCfg
+    from plasticinelab_tpu_torch.optimizer.solver import Solver, SolverConfig
+
+    cfg = dict(horizon=4, init_range=0.5)
+    draws = []
+    for _ in range(2):
+        env = PlasticineEnv(_tiny_scene(tspec), device="cpu")
+        env.seed(7)
+        draws.append(Solver.init_actions(env.taichi_env, SolverConfig(**cfg)))
+    np.testing.assert_array_equal(draws[0], draws[1])
+    assert draws[0].shape == (4, 3) and np.abs(draws[0]).max() > 0
+    ref = JaxEnv("", scene=_tiny_scene(jspec))
+    ref.seed(7)
+    np.testing.assert_array_equal(draws[0], JaxSolver.init_actions(ref.taichi_env, JaxCfg(**cfg)))
+    env.seed(8)
+    assert not np.array_equal(draws[0], Solver.init_actions(env.taichi_env, SolverConfig(**cfg)))
+
+
+def test_taichi_env_alias():
+    """`sim.TaichiEnv` names `PhysicsEnv`, for users of the reference's name
+    (`plasticinelab_tpu/engine/sim.py:385`)."""
+    from plasticinelab_tpu_torch.engine import sim
+
+    assert sim.TaichiEnv is sim.PhysicsEnv
