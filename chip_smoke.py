@@ -6,6 +6,8 @@
 Phases, each fatal on failure:
 1. device: requires CUDA; prints the card and its power limit;
 2. build: builds the CUDA kernels from `plasticinelab_tpu_torch/csrc`;
+   prints each kernel's ptxas registers and spills and its SASS counts
+   (instructions, MUFU, CALL; `cuobjdump -sass`);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    Move-v1 shapes (10,000 particles, 64^3 grid), inputs from a numpy seed;
    the scatters (K3, K7 forward) under four particle orders each: none, the
@@ -21,7 +23,12 @@ Phases, each fatal on failure:
    plain version on the card, at Move-v1 shapes, seeded cotangents; the
    grid update's backward once per primitive shape and for the walls and
    the three ground regimes, its pose cotangents compared too; K6 under the
-   four orders; then the scatter cases: K3, K7 forward and K6 on a cloud
+   four orders; then K1 and K2 where the SVD is hardest (F = I with and
+   without C, pure rotations, two equal singular values, one below the 0.05
+   clamp, F scaled by 1e-3 and 1e3, a yielding cloud) and on Move-v1's C
+   and F after 25 env steps tiled to 320,000 particles, held to the float64
+   plain version within TOL or the case's `HARD_TOL`; the Move-v1 case also timed with the L2
+   flushed before each call (`cold_time`); then the scatter cases: K3, K7 forward and K6 on a cloud
    spread over the whole domain (hardly two particles share a cell: every
    lane adds alone) and on a cloud in two corners (base cells clamped at
    both walls), B = 2, four orders each;
@@ -74,7 +81,7 @@ Phases, each fatal on failure:
    orders; K8-bwd-b once per primitive shape,
    each env with its own poses and softness; kernel and plain times at
    B = 8 and B = 32; K1 and K2 timed on the B n particles of the batched
-   path. It comes after the gradient because its plain VJPs keep their
+   path, L2-warm and L2-cold. It comes after the gradient because its plain VJPs keep their
    autograd graphs for the device times (the memory they hold is logged);
 16. device times: the scatter kernels at B = 1, 8, 32 under the sorted, a
    stale and no order with the share of global adds left (`lane_groups`),
@@ -95,6 +102,7 @@ last line {"ok": true, "device": {...}}.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -159,6 +167,20 @@ REF_REWARD_ATOL = 2e-5
 #   d = 1e-4, its derivative amplifies float32 rounding by ~1/d.
 BWD_TOL = {"stress_affine_bwd": 1e-4, "p2g_bwd": 1e-5, "grid_mass_bwd": 1e-5,
            "g2p_bwd": 1e-5, "grid_op_bwd": 1e-3}
+# The stress kernels where the SVD is hardest (`stress_cases`, Move-v1's own
+# C and F) are held to the float64 plain version, relative to its largest
+# value, each output (K1's new F and affine, K2's gC and gF) within
+# TOL / BWD_TOL or the case's fixed limit below. Float32 itself cannot hold
+# 1e-4 there: near a rotation the stress 2 mu (F - R) F^T cancels to
+# ~dt |C| of F, so rounding in F - R reaches ~7e-4 of the affine; at
+# near-equal singular values the damped inverse eigengap multiplies rounding
+# in the gap by up to 1 / eps^2 = 1e6. Each limit is about twice the largest
+# error that the float32 plain version, the kernels and their predecessors
+# (IEEE divisions and square roots) showed on these cases at four seeds and
+# on three Move-v1 rollouts (the readings: PERF.md).
+HARD_TOL = {"identity": (1e-4, 1.5e-3, 3e-4, 3e-4), "rotation": (1e-4, 1.5e-3, 3e-4, 3e-4),
+            "two equal": (1e-4, 1e-4, 1e-2, 1e-2), "yielding": (1e-4, 1e-4, 5e-4, 5e-4),
+            "Move-v1": (1e-4, 1e-4, 3e-4, 3e-4)}
 POSE_TOL = {"Box": 1e-2}  # else BWD_TOL["grid_op_bwd"]
 # 5 Move-v1 env steps, kernels vs plain versions from the same state and
 # actions, both float32: the loss relative, the gradient relative to its
@@ -247,7 +269,10 @@ PEAK_F32_S = 67e12
 # voxelizer. A grid that a kernel only gathers from under its particles
 # (K4, K5, K6, K7 backward) counts by its touched cells (`Gathered`): what
 # this run's data needs, not the whole grid.
-OPS_PER_ITEM = {"stress_affine": 1500, "stress_affine_bwd": 4000, "p2g": 900,
+# The stress kernels' counts are those of `csrc/stress.cu` run for one
+# particle with every float operation counted (K2 recomputes K1's chain
+# before its adjoint; SASS has 1,848 and 2,752 instructions per particle).
+OPS_PER_ITEM = {"stress_affine": 2093, "stress_affine_bwd": 3141, "p2g": 900,
                 "p2g_bwd": 1800, "grid_mass": 150, "grid_mass_bwd": 300, "g2p": 700,
                 "g2p_bwd": 1400, "grid_op": 300, "grid_op_bwd": 1500, "voxelize": 25}
 # the batched kernels do B times the work of the single-env ones
@@ -326,6 +351,26 @@ def wall_time(fn, reps=KERNEL_REPS):
     return start.elapsed_time(end) / reps
 
 
+def sass_counts(lib):
+    """kernel symbol -> (SASS instructions, MUFU, CALL) of a built library,
+    from `cuobjdump -sass` beside nvcc."""
+    from plasticinelab_tpu_torch.engine import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    out, counts = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                                 check=True).stdout, {}
+    for line in out.splitlines():
+        if "Function : " in line:
+            cur = counts.setdefault(line.split("Function : ")[1].strip(), [0, 0, 0])
+        elif re.search(r"/\*[0-9a-f]{4,}\*/\s", line):
+            op = line.split("*/", 1)[1].split()
+            op = op[1] if op[0].startswith("@") else op[0]  # past a predicate
+            cur[0] += 1
+            cur[1] += op.startswith("MUFU")
+            cur[2] += op.startswith("CALL")
+    return counts
+
+
 def device_ops(fn, reps=KERNEL_REPS):
     """(device ms, device operations) per call of fn(): the summed time and
     the count of the kernels and memsets it ran, from torch.profiler."""
@@ -350,6 +395,39 @@ def device_time(fn, reps=KERNEL_REPS, attempts=3):
         if ms > 0:
             return ms
     return None
+
+
+L2_FLUSH_BYTES = 512 << 20  # 10x the H100's 50 MB L2
+SLEEP_CYCLES = 400_000      # ~0.2 ms of the device: as long as that read
+
+
+def cold_time(fn, reps=KERNEL_REPS):
+    """(L2-cold, L2-warm) ms per call of fn(), the median of CUDA events
+    around each call alone. The call is queued behind a read of
+    L2_FLUSH_BYTES (cold: the L2 holds none of its data) or behind a device
+    sleep as long (warm: the data of the call before); either way the device
+    is still busy when the host has queued the call, so no launch time counts."""
+    import torch
+
+    flush = torch.ones(L2_FLUSH_BYTES // 4, device=DEVICE)
+    times = {"cold": [], "warm": []}
+    fn()
+    for _ in range(reps):
+        for kind in times:
+            flush.sum() if kind == "cold" else torch.cuda._sleep(SLEEP_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            times[kind].append((start, end))
+    torch.cuda.synchronize()
+    return tuple(float(np.median([s.elapsed_time(e) for s, e in times[k]])) for k in times)
+
+
+def log_cold_time(key, fn):
+    cold, warm = cold_time(fn)
+    log(f"  {key:28s} ms/call L2-cold {cold:.4f}  L2-warm {warm:.4f} (CUDA events, median)")
 
 
 class Gathered:
@@ -438,7 +516,7 @@ def compare(name, got, want, tol, flip_budget=0, per_row=False):
 def tensor(a):
     import torch
 
-    return torch.tensor(np.asarray(a, np.float32), device=DEVICE)
+    return torch.tensor(np.ascontiguousarray(a, np.float32), device=DEVICE)
 
 
 def move_scene():
@@ -507,6 +585,53 @@ def random_grid(rng, G):
     m = rng.uniform(1e-6, 1e-4, G ** 3) * (rng.random(G ** 3) > 0.25)
     vel = rng.standard_normal((G ** 3, 3))
     return tensor(np.concatenate([vel * m[:, None], m[:, None]], axis=1))
+
+
+def proper_rotations(rng, n):
+    """n random rotations (det +1)."""
+    q = np.linalg.qr(rng.standard_normal((n, 3, 3)))[0]
+    return q * np.sign(np.linalg.det(q))[:, None, None]
+
+
+def stress_cases(n, seed):
+    """name -> (C, F), each (n, 3, 3) float64: the stress kernels' inputs
+    where the SVD is hardest, beside the random set of the kernel phase.
+    C = 2 N(0, 1) as there, but where named "static" (C = 0: Ft = F)."""
+    rng = np.random.default_rng(seed)
+    C = rng.standard_normal((n, 3, 3)) * 2.0
+    R1, R2 = proper_rotations(rng, n), proper_rotations(rng, n)
+
+    def singular(s):
+        return R1 @ (s[:, :, None] * np.eye(3)) @ R2.transpose(0, 2, 1)
+
+    one = np.ones(n)
+    eye = np.tile(np.eye(3), (n, 1, 1))
+    near = eye + rng.standard_normal((n, 3, 3)) * 0.15
+    return {
+        "random": (C, near),
+        "identity, static": (np.zeros((n, 3, 3)), eye),
+        "identity": (C, eye),
+        "rotation": (C, R1),
+        "two equal": (C, singular(np.stack([1.2 * one, 0.9 * one, 0.9 * one], 1))),
+        "below clamp": (C, singular(np.stack([1.1 * one, 0.95 * one, 0.02 * one], 1))),
+        "scaled 1e-3": (C, near * 1e-3),
+        "scaled 1e3": (C, near * 1e3),
+        "yielding": (C, singular(np.exp(rng.uniform(-0.4, 0.4, (n, 3))))),
+    }
+
+
+def move_stress_inputs(steps, seed):
+    """C and F of Move-v1's particles after `steps` env steps of seeded
+    random actions through the kernels: what the main path feeds K1 and K2."""
+    from plasticinelab_tpu_torch.envs import make
+
+    env = make("Move-v1", device=DEVICE)
+    env.reset()
+    rng = np.random.default_rng(seed)
+    for _ in range(steps):
+        env.step(rng.uniform(-1, 1, env.action_space.shape))
+    st = env.unwrapped.taichi_env.state
+    return st.C.clone(), st.F.clone()
 
 
 def phase_kernels():
@@ -598,6 +723,81 @@ def plain_vjp(fn, inputs, cts):
         return tuple(torch.zeros_like(i) if g is None else g for g, i in zip(grads, ins))
 
     return backward(), backward
+
+
+def hold_to_f64(name, got, want32, want64, limits):
+    """Fails where an output of got (the kernel's) is further from want64 (the
+    float64 plain version's) than its limit, relative to want64's largest
+    value; logs the float32 plain version's (want32's) distance beside it.
+    Returns got's (max abs, max rel) error vs want32."""
+    import torch
+
+    max_abs, max_rel = 0.0, 0.0
+    for i, (g, w32, w64, limit) in enumerate(zip(got, want32, want64, limits)):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name}: non-finite kernel output")
+        g, w32 = g.double(), w32.double()
+        scale = float(w64.abs().max()) or 1.0
+        err, own = (float((x - w64).abs().max()) / scale for x in (g, w32))
+        e32 = float((g - w32).abs().max())
+        log(f"  {name:44s} output {i}: vs float64 {err:.3e}, float32 plain's {own:.3e} "
+            f"(limit {limit:.3e}); vs float32 plain {e32 / scale:.3e}")
+        if not err <= limit:
+            raise AssertionError(f"{name}: output {i} off by {err:.3e} > {limit:.3e}")
+        max_abs, max_rel = max(max_abs, e32), max(max_rel, e32 / (float(w32.abs().max()) or 1.0))
+    return max_abs, max_rel
+
+
+def phase_stress_cases():
+    """K1 and K2 where the SVD is hardest (`stress_cases` at Move-v1's
+    particle count, seeded cotangents) and on Move-v1's own C and F after 25
+    env steps tiled to the 320,000 particles of the batched path at B = 32
+    (also timed, L2-warm and L2-cold), held to the float64 plain version
+    within TOL / BWD_TOL or HARD_TOL. Its backward takes the float32
+    eigengap damping there: the same function in float64."""
+    from unittest import mock
+
+    import torch
+
+    from plasticinelab_tpu_torch.engine import cuda_stress, svd3
+    from plasticinelab_tpu_torch.engine.state import default_materials
+
+    scene, x_np = move_scene()
+    n = len(x_np)
+    mats = default_materials(scene)
+    log(f"phase stress cases: the SVD's hard inputs, n={n}, seed {SEED + 15}")
+    cases = {k: (tensor(c), tensor(f)) for k, (c, f) in stress_cases(n, SEED + 15).items()}
+    C, F = move_stress_inputs(25, SEED + 16)
+    B = VEC_BATCHES[-1]
+    cases[f"Move-v1 after 25 steps x {B}"] = (C.repeat(B, 1, 1), F.repeat(B, 1, 1))
+    results = {}
+
+    def plain(c, f):
+        return cuda_stress.stress_affine_plain(scene, mats, c, f)
+
+    for label, (C, F) in cases.items():
+        rng = np.random.default_rng(SEED + 17)
+        cts = [tensor(rng.standard_normal(C.shape)) for _ in range(2)]
+        with mock.patch.object(svd3, "_GAP_EPS_F64", svd3.gap_mode(torch.float32)[1]):
+            want64 = plain(C.double(), F.double())
+            grad64 = plain_vjp(plain, [C.double(), F.double()], [c.double() for c in cts])[0]
+        limits = HARD_TOL.get(label.split(" after")[0], (TOL["stress_affine"],) * 2
+                              + (BWD_TOL["stress_affine_bwd"],) * 2)
+        k1 = lambda: cuda_stress.stress_affine(scene, mats, C, F)  # noqa: E731
+        err1 = hold_to_f64(f"stress_affine [{label}]", k1(), plain(C, F), want64, limits[:2])
+        want, p2 = plain_vjp(plain, [C, F], cts)
+        k2 = lambda: cuda_stress.stress_affine_bwd(scene, mats, C, F, *cts)  # noqa: E731
+        err2 = hold_to_f64(f"stress_affine_bwd [{label}]", k2(), want, grad64, limits[2:])
+        if label.startswith("Move-v1"):
+            m = C.shape[0]
+            for key, name, err, kern, pl, ins in (
+                    ("stress_affine", "stress_affine", err1, k1, lambda: plain(C, F), (C, F)),
+                    ("stress_affine_bwd", "stress_affine_bwd", err2, k2, p2, (C, F, *cts))):
+                key = f"{key}[Move-v1, n={m}]"
+                record(results, key, name, err, kern, pl, ins, m)
+                log_cold_time(key, kern)
+    torch.cuda.synchronize()
+    return results
 
 
 def phase_backward():
@@ -1375,12 +1575,14 @@ def phase_vec_backward():
         record(results, f"stress_affine[n={B * n}]", "stress_affine",
                compare(f"stress_affine [n={B * n}]", k1(), p1(), TOL["stress_affine"]), k1, p1,
                (Cf, Ff), B * n)
+        log_cold_time(f"stress_affine[n={B * n}]", k1)
         want, p2 = plain_vjp(lambda c, f: cuda_stress.stress_affine_plain(scene, mats, c, f),
                              [Cf, Ff], cts)
         k2 = lambda: cuda_stress.stress_affine_bwd(scene, mats, Cf, Ff, *cts)  # noqa: E731
         record(results, f"stress_affine_bwd[n={B * n}]", "stress_affine_bwd",
                compare(f"stress_affine_bwd [n={B * n}]", k2(), want,
                        BWD_TOL["stress_affine_bwd"]), k2, p2, (Cf, Ff, *cts), B * n)
+        log_cold_time(f"stress_affine_bwd[n={B * n}]", k2)
 
         # the grid update's backward on realistic grids: P2G of the clouds
         grid4 = cuda_transfer.p2g_plain_batched(scene, x, v, sim.p_mass * C)
@@ -1631,12 +1833,15 @@ def vec_profile(work):
     t0 = time.perf_counter()
     run()
     wall = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-    events = prof.key_averages()
-    # device-side events only: with CPU activity on, each CPU op also
-    # carries the device time of the kernels it launched
-    dev = [e for e in events if e.device_type != DeviceType.CPU]
+    for _ in range(3):  # a profile now and then records no device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+        events = prof.key_averages()
+        # device-side events only: with CPU activity on, each CPU op also
+        # carries the device time of the kernels it launched
+        dev = [e for e in events if e.device_type != DeviceType.CPU]
+        if sum(e.count for e in dev):
+            break
     busy = sum(e.self_device_time_total for e in dev) / 1e3
     ops = sum(e.count for e in dev)
     calls = {name: sum(e.count for e in events if e.key.startswith(prefixes))
@@ -1683,15 +1888,18 @@ def main():
     path = cuda_build.library_path()
     cuda_build.library()
     log(f"phase build: {time.perf_counter() - t0:.1f} s -> {path}")
-    with open(path.rsplit("/", 1)[0] + "/build.log") as f:
+    with open(os.path.join(os.path.dirname(path), "build.log")) as f:
         for line in f:
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line or "registers" in line or "spill" in line:
                 log("  ptxas: " + line.strip())
+    for kernel, (count, mufu, call) in sass_counts(path).items():
+        log(f"  sass {kernel}: {count} instructions, {mufu} MUFU, {call} CALL")
 
     results = phase_kernels()
     phase_reference()
     launches, _ = phase_slice()
     results.update(phase_backward())
+    results.update(phase_stress_cases())
     phase_scatter_cases()
     # the backward kernels' counts come from the trajectory gradient's run
     launches.update({k: v for k, v in phase_gradient().items() if k.endswith("_bwd")})

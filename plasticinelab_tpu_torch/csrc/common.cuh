@@ -14,8 +14,8 @@ __device__ __forceinline__ float sq(float a) { return a * a; }
 
 constexpr int kThreads = 256;
 
-inline unsigned int blocks_for(long long n) {
-  return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
+inline unsigned int blocks_for(long long n, int threads = kThreads) {
+  return static_cast<unsigned int>((n + threads - 1) / threads);
 }
 
 }  // namespace plb

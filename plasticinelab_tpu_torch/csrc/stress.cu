@@ -1,4 +1,4 @@
-// Particle stress kernels, one thread per particle, all in registers.
+// Particle stress kernels, one thread per particle, the chain in registers.
 //
 // stress_affine_kernel: F-update, 3x3 Jacobi SVD, von Mises return map,
 //   stress and APIC affine. Port of plasticinelab_tpu/engine/pallas_stress.py
@@ -8,16 +8,63 @@
 //   the damped-eigengap SVD cotangent. Port of pallas_stress.py _bwd_kernel
 //   (K2, :222-330): it recomputes the forward from C and F (forward_core,
 //   shared with K1) and applies the adjoint term by term.
-// In/out are (n, 3, 3) row-major float32. Bound by arithmetic and registers:
-// ~2k flops forward and ~4k backward per particle against 72-144 B of I/O.
+// In/out are (n, 3, 3) row-major float32: 72 B in and out per particle, K2
+// 144 B in. On the H100 one thread's dependent chain bounds them where a
+// launch is a fraction of a wave (Move-v1's 10,000 particles), and the
+// chain's instructions and the 36-byte-strided stores where it is many
+// waves (the batched path's 320,000). So:
+// - the chain is short: the Jacobi rotation's angle takes one approximate
+//   reciprocal and two rsqrt (MUFU.RCP, MUFU.RSQ) instead of five IEEE
+//   divisions and three square roots, then one Newton step makes it a
+//   rotation to float32 rounding; the Gram-Schmidt norms take rsqrt; the
+//   log, exp and every division of the return map, the stress and the
+//   adjoint stay IEEE;
+// - a block's outputs leave through shared memory, one contiguous slab per
+//   array written 16 bytes a thread (the inputs are read straight: the L1
+//   serves a warp's strided loads from the sectors its first load brought);
+// - blocks are small, so that a launch of 10,000 particles reaches every SM.
 #include "common.cuh"
 
 namespace {
 
 using plb::jmax;
 
+// MUFU.RCP and MUFU.RSQ alone (relative error ~2^-23): the callers' arguments
+// are normal numbers, so flushing subnormals changes nothing, and rounding
+// moves a rotation's angle or a normalisation's length, not its result's
+// orthogonality beyond float32 rounding.
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ float rsqrt_approx(float x) {
+  float r;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
 // One Jacobi rotation zeroing a[P][Q] of the symmetric matrix a (upper
-// triangle used), accumulated into v (_forward_core :86-119).
+// triangle used), accumulated into v (_forward_core :86-119). The angle is
+// the reference's, t = atan2(2 apq, aqq - app) / 2, by the half-angle
+// identities:
+//   cos 2t, sin 2t from (aqq - app, 2 apq) scaled by a reciprocal of the
+//   larger magnitude m (the scale cancels in the angle; m is clamped to the
+//   normal range [2^-126, 2^126] so that the reciprocal is normal too, and
+//   the rsqrt argument stays in [2^-46, 32]);
+//   u = (1 + |cos 2t|) / 2 in [0.5, 1] is cos^2 t (cos 2t >= 0) or sin^2 t;
+//   the larger of (c, s) is sqrt(u) = u rsqrt(u), the other
+//   |sin 2t| / (2 sqrt(u)), stable where |cos 2t| ~ 1;
+//   then (c, s) times k = (3 - c^2 - s^2) / 2, one Newton step of
+//   rsqrt(c^2 + s^2) from 1: the approximate ops leave c^2 + s^2 off 1 by up
+//   to ~5e-7, k brings it to float32 rounding. The angle may stay off by
+//   ~1e-7: another rotation. A scale left in V instead accumulates over the
+//   18 rotations into the singular values, and the backward's damped
+//   eigengap multiplies it by up to 1 / eps^2 at near-equal ones (PERF.md:
+//   K2 on a yielding cloud). The sign follows atan2's: where sin 2t underflows
+// to 0 beside cos 2t = -1 the rotation is t = +-pi/2. fmaxf in place of the
+// NaN-propagating jmax: a NaN in a reaches cos 2t or sin 2t all the same.
 template <int P, int Q>
 __device__ __forceinline__ void jacobi_rotation(float (&a)[3][3], float (&v)[3][3]) {
   constexpr int R = 3 - P - Q;
@@ -26,24 +73,23 @@ __device__ __forceinline__ void jacobi_rotation(float (&a)[3][3], float (&v)[3][
   const float app = a[P][P], aqq = a[Q][Q], apq = a[P][Q];
   const float y = 2.0f * apq;
   const float z = aqq - app;
-  // scale-invariant hypot normalization
-  const float mm = jmax(fabsf(y), fabsf(z));
-  const bool ok = fabsf(y) > 0.0f;
-  const float mm_safe = mm > 0.0f ? mm : 1.0f;
-  const float ym = y / mm_safe;
-  const float zm = z / mm_safe;
-  const float rinv = 1.0f / sqrtf(jmax(ym * ym + zm * zm, 1e-30f));
+  const bool ok = fabsf(y) > 0.0f;  // apq == 0: the identity rotation
+  const float m = fminf(fmaxf(fmaxf(fabsf(y), fabsf(z)), 1.17549435e-38f), 8.50705917e37f);
+  const float inv_m = rcp_approx(m);
+  const float ym = y * inv_m;
+  const float zm = z * inv_m;
+  const float rinv = rsqrt_approx(fmaxf(ym * ym + zm * zm, 1e-30f));
   const float cos2t = zm * rinv;
   const float sin2t = ym * rinv;
-  // stable half-angles
-  const float c_raw = sqrtf(jmax((1.0f + cos2t) * 0.5f, 1e-30f));
-  const float s_raw = sqrtf(jmax((1.0f - cos2t) * 0.5f, 1e-30f));
-  const bool pos_b = cos2t >= 0.0f;
-  const float sgn = sin2t > 0.0f ? 1.0f : (sin2t < 0.0f ? -1.0f : 0.0f);
-  float c = pos_b ? c_raw : fabsf(sin2t) * 0.5f / s_raw;
-  float s = pos_b ? sin2t * 0.5f / c_raw : sgn * s_raw;
-  c = ok ? c : 1.0f;
-  s = ok ? s : 0.0f;
+  const float u = (1.0f + fabsf(cos2t)) * 0.5f;
+  const float h = rsqrt_approx(u);
+  const float big = u * h;
+  const float hs = sin2t * 0.5f * h;  // sign(sin 2t) |sin 2t| / (2 sqrt(u))
+  const bool pos = cos2t >= 0.0f;
+  const float c0 = ok ? (pos ? big : fabsf(hs)) : 1.0f;
+  const float s0 = ok ? (pos ? hs : copysignf(big, sin2t)) : 0.0f;
+  const float k = fmaf(-0.5f, fmaf(c0, c0, s0 * s0), 1.5f);
+  const float c = c0 * k, s = s0 * k;
   const float cc = c * c, ss = s * s, cs = c * s;
   const float apr = a[PR0][PR1], aqr = a[QR0][QR1];
   a[P][P] = cc * app - 2.0f * cs * apq + ss * aqq;
@@ -86,12 +132,13 @@ __device__ __forceinline__ void cross3(const float (&x)[3], const float (&y)[3],
   o[2] = x[0] * y[1] - x[1] * y[0];
 }
 
-// x / |x| where |x|^2 > 1e-16, else the fallback (_forward_core :145-149).
+// x / |x| where |x|^2 > 1e-16, else the fallback (_forward_core :145-149,
+// which also takes rsqrt).
 __device__ __forceinline__ void safe_normalize(const float (&x)[3], const float (&fb)[3],
                                                float (&o)[3]) {
   const float n2 = dot3(x, x);
   const bool okn = n2 > 1e-16f;
-  const float inv = 1.0f / sqrtf(okn ? n2 : 1.0f);
+  const float inv = rsqrt_approx(okn ? n2 : 1.0f);
 #pragma unroll
   for (int i = 0; i < 3; ++i) o[i] = okn ? x[i] * inv : fb[i];
 }
@@ -118,12 +165,13 @@ __device__ __forceinline__ void mm3(const float (&B)[3][3], const float (&C)[3][
 // Every forward intermediate the adjoint needs (_forward_core's dict).
 struct StressFwd {
   float Ft[3][3], U[3][3], V[3][3], sig[3], sc[3], eh[3], f[3], nF[3][3];
-  float ehn, cy, J;
+  float ehn, J;
   bool yields;
 };
 
+// cy = yield_stress / (2 mu), computed once on the host.
 __device__ __forceinline__ void forward_core(const float (&C)[3][3], const float (&F)[3][3],
-                                             float dt, float mu, float ys, StressFwd& o) {
+                                             float dt, float cy, StressFwd& o) {
   // Ft = (I + dt C) F
 #pragma unroll
   for (int i = 0; i < 3; ++i)
@@ -211,8 +259,7 @@ __device__ __forceinline__ void forward_core(const float (&C)[3][3], const float
 #pragma unroll
   for (int k = 0; k < 3; ++k) o.eh[k] = eps[k] - mean;
   o.ehn = sqrtf(o.eh[0] * o.eh[0] + o.eh[1] * o.eh[1] + o.eh[2] * o.eh[2] + 1e-8f);
-  o.cy = ys / (2.0f * mu);
-  const float dg = o.ehn - o.cy;
+  const float dg = o.ehn - cy;
   o.yields = dg > 0.0f;
   const float fac = dg / o.ehn;
 #pragma unroll
@@ -237,36 +284,70 @@ __device__ __forceinline__ void load33(const float* __restrict__ g, long long p,
     for (int j = 0; j < 3; ++j) M[i][j] = g[p * 9 + i * 3 + j];
 }
 
-__global__ void stress_affine_kernel(const float* __restrict__ Cg, const float* __restrict__ Fg,
-                                     float* __restrict__ newFg, float* __restrict__ affg,
-                                     long long n, float dt, float mu, float lam, float ys,
-                                     float coeff, float p_mass) {
-  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  float C[3][3], F[3][3];
-  load33(Cg, p, C);
-  load33(Fg, p, F);
-  StressFwd o;
-  forward_core(C, F, dt, mu, ys, o);
+// A block's rows [p0, p0 + rows) of an (n, 3, 3) float32 array are one
+// contiguous slab of 9 rows floats: the whole block writes it from shared
+// memory, 16 bytes a thread where it is 16-byte aligned (always, for a
+// tensor's own storage: p0 is a multiple of 64). Stored by each thread at a
+// 36-byte stride instead, every warp's store instruction touches ~32
+// sectors for 128 bytes: the L2 then takes ~9x the write transactions.
+__device__ __forceinline__ void store_slab(float* __restrict__ g, long long p0, int rows,
+                                           const float* s) {
+  float* dst = g + p0 * 9;
+  const int m = rows * 9;
+  int done = 0;
+  if ((reinterpret_cast<unsigned long long>(dst) & 15) == 0) {
+    done = m & ~3;
+    for (int i = threadIdx.x; i < (m >> 2); i += blockDim.x)
+      reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(s)[i];
+  }
+  for (int i = done + threadIdx.x; i < m; i += blockDim.x) dst[i] = s[i];
+}
 
-  // stress 2 mu (F - R) F^T + lam J (J - 1) I, scaled, plus p_mass C
-  const float lamJ = lam * o.J * (o.J - 1.0f);
-  float FmR[3][3];
+// Launch shapes: threads per block, and the least blocks per SM, which caps
+// the registers (K1 at 64 a thread, K2 at 128; neither spills). 10,000
+// particles make 157 blocks of K1 and 79 of K2.
+constexpr int kFwdThreads = 64, kFwdMinBlocks = 16;
+constexpr int kBwdThreads = 128, kBwdMinBlocks = 4;
+
+template <int THREADS, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    stress_affine_kernel(const float* __restrict__ Cg, const float* __restrict__ Fg,
+                         float* __restrict__ newFg, float* __restrict__ affg, long long n,
+                         float dt, float mu, float lam, float cy, float coeff, float p_mass) {
+  // newF and affine out through shared memory; C and F straight in
+  __shared__ __align__(16) float sA[THREADS * 9], sN[THREADS * 9];
+  const long long p0 = static_cast<long long>(blockIdx.x) * THREADS;
+  const int rows = static_cast<int>(n - p0 < THREADS ? n - p0 : THREADS);
+  const int t = threadIdx.x;
+  if (t < rows) {
+    float C[3][3], F[3][3];
+    load33(Cg, p0 + t, C);
+    load33(Fg, p0 + t, F);
+    StressFwd o;
+    forward_core(C, F, dt, cy, o);
+
+    // stress 2 mu (F - R) F^T + lam J (J - 1) I, scaled, plus p_mass C
+    const float lamJ = lam * o.J * (o.J - 1.0f);
+    float FmR[3][3];
 #pragma unroll
-  for (int i = 0; i < 3; ++i)
+    for (int i = 0; i < 3; ++i)
 #pragma unroll
-    for (int j = 0; j < 3; ++j)
-      FmR[i][j] = o.nF[i][j] - (o.U[i][0] * o.V[j][0] + o.U[i][1] * o.V[j][1] + o.U[i][2] * o.V[j][2]);
+      for (int j = 0; j < 3; ++j)
+        FmR[i][j] = o.nF[i][j] -
+                    (o.U[i][0] * o.V[j][0] + o.U[i][1] * o.V[j][1] + o.U[i][2] * o.V[j][2]);
 #pragma unroll
-  for (int i = 0; i < 3; ++i)
+    for (int i = 0; i < 3; ++i)
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float S = FmR[i][0] * o.nF[j][0] + FmR[i][1] * o.nF[j][1] + FmR[i][2] * o.nF[j][2];
-      float val = 2.0f * mu * S + (i == j ? lamJ : 0.0f);
-      val = coeff * val + p_mass * C[i][j];
-      affg[p * 9 + i * 3 + j] = val;
-      newFg[p * 9 + i * 3 + j] = o.nF[i][j];
-    }
+      for (int j = 0; j < 3; ++j) {
+        const float S = FmR[i][0] * o.nF[j][0] + FmR[i][1] * o.nF[j][1] + FmR[i][2] * o.nF[j][2];
+        float val = 2.0f * mu * S + (i == j ? lamJ : 0.0f);
+        sA[t * 9 + i * 3 + j] = coeff * val + p_mass * C[i][j];
+        sN[t * 9 + i * 3 + j] = o.nF[i][j];
+      }
+  }
+  __syncthreads();
+  store_slab(affg, p0, rows, sA);
+  store_slab(newFg, p0, rows, sN);
 }
 
 // Inverse eigengap of the SVD backward (svd3.py:211-220): 0 = the
@@ -280,135 +361,157 @@ __device__ __forceinline__ float inv_gap(float gap, int mode, float eps) {
   return 0.0f;
 }
 
-__global__ void stress_affine_bwd_kernel(const float* __restrict__ Cg, const float* __restrict__ Fg,
-                                         const float* __restrict__ gNFg,
-                                         const float* __restrict__ gAffg, float* __restrict__ gCg,
-                                         float* __restrict__ gFg, long long n, float dt, float mu,
-                                         float lam, float ys, float coeff, float p_mass,
-                                         int gap_mode, float gap_eps) {
-  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  float C[3][3], F[3][3], gNF[3][3], gAff[3][3];
-  load33(Cg, p, C);
-  load33(Fg, p, F);
-  load33(gNFg, p, gNF);
-  load33(gAffg, p, gAff);
-  StressFwd o;
-  forward_core(C, F, dt, mu, ys, o);
-  const float(&U)[3][3] = o.U;
-  const float(&V)[3][3] = o.V;
+template <int THREADS, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    stress_affine_bwd_kernel(const float* __restrict__ Cg, const float* __restrict__ Fg,
+                             const float* __restrict__ gNFg, const float* __restrict__ gAffg,
+                             float* __restrict__ gCg, float* __restrict__ gFg, long long n,
+                             float dt, float mu, float lam, float cy, float coeff, float p_mass,
+                             int gap_mode, float gap_eps) {
+  // gC and gF out through shared memory; the inputs straight in
+  __shared__ __align__(16) float sC[THREADS * 9], sF[THREADS * 9];
+  const long long p0 = static_cast<long long>(blockIdx.x) * THREADS;
+  const int rows = static_cast<int>(n - p0 < THREADS ? n - p0 : THREADS);
+  const int t = threadIdx.x;
+  if (t < rows) {
+    const long long p = p0 + t;
+    float C[3][3], F[3][3], gNF[3][3], gAff[3][3];
+    load33(Cg, p, C);
+    load33(Fg, p, F);
+    StressFwd o;
+    forward_core(C, F, dt, cy, o);
+    load33(gNFg, p, gNF);
+    load33(gAffg, p, gAff);
+    const float(&U)[3][3] = o.U;
+    const float(&V)[3][3] = o.V;
 
-  // ---- stress / affine adjoint ----
-  float gS[3][3];
-  float trg = 0.0f;
+    // ---- stress / affine adjoint ----
+    float gS[3][3];
+    float trg = 0.0f;
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
+    for (int i = 0; i < 3; ++i) {
 #pragma unroll
-    for (int j = 0; j < 3; ++j) gS[i][j] = 2.0f * mu * coeff * gAff[i][j];
-    trg += coeff * gAff[i][i];
+      for (int j = 0; j < 3; ++j) gS[i][j] = 2.0f * mu * coeff * gAff[i][j];
+      trg += coeff * gAff[i][i];
+    }
+    const float gJ = lam * (2.0f * o.J - 1.0f) * trg;
+    // S = (newF - R) newF^T
+    float FmR[3][3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        FmR[i][j] = o.nF[i][j] - (U[i][0] * V[j][0] + U[i][1] * V[j][1] + U[i][2] * V[j][2]);
+    float gS_nF[3][3], gSt_FmR[3][3];
+    mm3<0>(gS, o.nF, gS_nF);
+    mm3<2>(gS, FmR, gSt_FmR);
+    // cofactor of newF: rows are cross products of the other two rows
+    float cof[3][3];
+    cross3(o.nF[1], o.nF[2], cof[0]);
+    cross3(o.nF[2], o.nF[0], cof[1]);
+    cross3(o.nF[0], o.nF[1], cof[2]);
+    float gNewF[3][3], gR[3][3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        gNewF[i][j] = gNF[i][j] + gS_nF[i][j] + gSt_FmR[i][j] + gJ * cof[i][j];
+        gR[i][j] = -gS_nF[i][j];
+      }
+
+    // ---- von Mises adjoint (yielding lanes) ----
+    float gNFV[3][3], gNFtU[3][3];
+    mm3<0>(gNewF, V, gNFV);
+    mm3<2>(gNewF, U, gNFtU);
+    // gep_k = f_k (U^T gNewF V)_kk = f_k sum_i (gNewF^T U)_ik V_ik
+    float gep[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      gep[k] = (gNFtU[0][k] * V[0][k] + gNFtU[1][k] * V[1][k] + gNFtU[2][k] * V[2][k]) * o.f[k];
+    // eps_p = mean + (cy / ehn) eh
+    const float sum_gep = gep[0] + gep[1] + gep[2];
+    const float inv_ehn = 1.0f / o.ehn;
+    const float dot_eh_gep = o.eh[0] * gep[0] + o.eh[1] * gep[1] + o.eh[2] * gep[2];
+    const float proj = dot_eh_gep * inv_ehn * inv_ehn;
+    float geh[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) geh[k] = cy * inv_ehn * (gep[k] - o.eh[k] * proj);
+    const float mean_geh = (geh[0] + geh[1] + geh[2]) / 3.0f;
+    const float mean_gep = sum_gep / 3.0f;
+    float gsig[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float geps = geh[k] - mean_geh + mean_gep;
+      // eps = log(max(sig, 0.05)): no gradient below the clamp
+      const float gsig_vm = o.sig[k] > 0.05f ? geps / o.sc[k] : 0.0f;
+      gsig[k] = o.yields ? gsig_vm : 0.0f;
+    }
+    // the R path flows in every lane
+    float gR_V[3][3], gRt_U[3][3], gU[3][3], gV[3][3];
+    mm3<0>(gR, V, gR_V);
+    mm3<2>(gR, U, gRt_U);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        gU[i][j] = (o.yields ? gNFV[i][j] * o.f[j] : 0.0f) + gR_V[i][j];
+        gV[i][j] = (o.yields ? gNFtU[i][j] * o.f[j] : 0.0f) + gRt_U[i][j];
+      }
+
+    // ---- SVD adjoint, damped eigengap (svd3.py:205-235) ----
+    float s2[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) s2[k] = o.sig[k] * o.sig[k];
+    float UtgU[3][3], VtgV[3][3];
+    mm3<2>(U, gU, UtgU);
+    mm3<2>(V, gV, VtgV);
+    // Fm[i][j] = inv_gap(s2[j] - s2[i]); the damped form is odd in the gap,
+    // so its lower triangle is the upper one negated (bit for bit)
+    float Fm[3][3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      Fm[i][i] = 0.0f;
+#pragma unroll
+      for (int j = i + 1; j < 3; ++j) {
+        Fm[i][j] = inv_gap(s2[j] - s2[i], gap_mode, gap_eps);
+        Fm[j][i] = gap_mode == 1 ? -Fm[i][j] : inv_gap(s2[i] - s2[j], gap_mode, gap_eps);
+      }
+    }
+    float mid[3][3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float inner_u = Fm[i][j] * (UtgU[i][j] - UtgU[j][i]);
+        const float inner_v = Fm[i][j] * (VtgV[i][j] - VtgV[j][i]);
+        mid[i][j] = inner_u * o.sig[j] + o.sig[i] * inner_v + (i == j ? gsig[i] : 0.0f);
+      }
+    float Umid[3][3], gFt[3][3];
+    mm3<0>(U, mid, Umid);
+    mm3<1>(Umid, V, gFt);
+    // non-yielding lanes route gNewF straight to Ft
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) gFt[i][j] += o.yields ? 0.0f : gNewF[i][j];
+
+    // ---- Ft = (I + dt C) F adjoint ----
+    float gFtFt[3][3];
+    mm3<1>(gFt, F, gFtFt);  // gFt F^T
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        float gf = 0.0f;  // ((I + dt C)^T gFt)_ij
+#pragma unroll
+        for (int k = 0; k < 3; ++k) gf += ((k == i ? 1.0f : 0.0f) + dt * C[k][i]) * gFt[k][j];
+        sC[t * 9 + i * 3 + j] = p_mass * gAff[i][j] + dt * gFtFt[i][j];
+        sF[t * 9 + i * 3 + j] = gf;
+      }
   }
-  const float gJ = lam * (2.0f * o.J - 1.0f) * trg;
-  // S = (newF - R) newF^T
-  float FmR[3][3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      FmR[i][j] = o.nF[i][j] - (U[i][0] * V[j][0] + U[i][1] * V[j][1] + U[i][2] * V[j][2]);
-  float gS_nF[3][3], gSt_FmR[3][3];
-  mm3<0>(gS, o.nF, gS_nF);
-  mm3<2>(gS, FmR, gSt_FmR);
-  // cofactor of newF: rows are cross products of the other two rows
-  float cof[3][3];
-  cross3(o.nF[1], o.nF[2], cof[0]);
-  cross3(o.nF[2], o.nF[0], cof[1]);
-  cross3(o.nF[0], o.nF[1], cof[2]);
-  float gNewF[3][3], gR[3][3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      gNewF[i][j] = gNF[i][j] + gS_nF[i][j] + gSt_FmR[i][j] + gJ * cof[i][j];
-      gR[i][j] = -gS_nF[i][j];
-    }
-
-  // ---- von Mises adjoint (yielding lanes) ----
-  float gNFV[3][3], gNFtU[3][3], UtgNF[3][3], UtgNFV[3][3];
-  mm3<0>(gNewF, V, gNFV);
-  mm3<2>(gNewF, U, gNFtU);
-  mm3<2>(U, gNewF, UtgNF);
-  mm3<0>(UtgNF, V, UtgNFV);
-  float gep[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) gep[k] = UtgNFV[k][k] * o.f[k];
-  // eps_p = mean + (cy / ehn) eh
-  const float sum_gep = gep[0] + gep[1] + gep[2];
-  const float ehn2 = o.ehn * o.ehn;
-  const float dot_eh_gep = o.eh[0] * gep[0] + o.eh[1] * gep[1] + o.eh[2] * gep[2];
-  float geh[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-    geh[k] = o.cy * (gep[k] / o.ehn - o.eh[k] * dot_eh_gep / (ehn2 * o.ehn));
-  const float mean_geh = (geh[0] + geh[1] + geh[2]) / 3.0f;
-  float gsig[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const float geps = geh[k] - mean_geh + sum_gep / 3.0f;
-    // eps = log(max(sig, 0.05)): no gradient below the clamp
-    const float gsig_vm = o.sig[k] > 0.05f ? geps / o.sc[k] : 0.0f;
-    gsig[k] = o.yields ? gsig_vm : 0.0f;
-  }
-  // the R path flows in every lane
-  float gR_V[3][3], gRt_U[3][3], gU[3][3], gV[3][3];
-  mm3<0>(gR, V, gR_V);
-  mm3<2>(gR, U, gRt_U);
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      gU[i][j] = (o.yields ? gNFV[i][j] * o.f[j] : 0.0f) + gR_V[i][j];
-      gV[i][j] = (o.yields ? gNFtU[i][j] * o.f[j] : 0.0f) + gRt_U[i][j];
-    }
-
-  // ---- SVD adjoint, damped eigengap (svd3.py:205-235) ----
-  float s2[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) s2[k] = o.sig[k] * o.sig[k];
-  float UtgU[3][3], VtgV[3][3];
-  mm3<2>(U, gU, UtgU);
-  mm3<2>(V, gV, VtgV);
-  float mid[3][3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float Fm = i == j ? 0.0f : inv_gap(s2[j] - s2[i], gap_mode, gap_eps);
-      const float inner_u = Fm * (UtgU[i][j] - UtgU[j][i]);
-      const float inner_v = Fm * (VtgV[i][j] - VtgV[j][i]);
-      mid[i][j] = inner_u * o.sig[j] + o.sig[i] * inner_v + (i == j ? gsig[i] : 0.0f);
-    }
-  float Umid[3][3], gFt[3][3];
-  mm3<0>(U, mid, Umid);
-  mm3<1>(Umid, V, gFt);
-  // non-yielding lanes route gNewF straight to Ft
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) gFt[i][j] += o.yields ? 0.0f : gNewF[i][j];
-
-  // ---- Ft = (I + dt C) F adjoint ----
-  float gFtFt[3][3];
-  mm3<1>(gFt, F, gFtFt);  // gFt F^T
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      float gf = 0.0f;  // ((I + dt C)^T gFt)_ij
-#pragma unroll
-      for (int k = 0; k < 3; ++k) gf += ((k == i ? 1.0f : 0.0f) + dt * C[k][i]) * gFt[k][j];
-      gCg[p * 9 + i * 3 + j] = p_mass * gAff[i][j] + dt * gFtFt[i][j];
-      gFg[p * 9 + i * 3 + j] = gf;
-    }
+  __syncthreads();
+  store_slab(gCg, p0, rows, sC);
+  store_slab(gFg, p0, rows, sF);
 }
 
 }  // namespace
@@ -419,9 +522,9 @@ extern "C" int plb_stress_affine(const float* C, const float* F, float* newF, fl
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
-    stress_affine_kernel<<<plb::blocks_for(n), plb::kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(C, F, newF, affine, n, dt, mu,
-                                                                lam, ys, coeff, p_mass);
+    stress_affine_kernel<kFwdThreads, kFwdMinBlocks>
+        <<<plb::blocks_for(n, kFwdThreads), kFwdThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            C, F, newF, affine, n, dt, mu, lam, ys / (2.0f * mu), coeff, p_mass);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -435,9 +538,10 @@ extern "C" int plb_stress_affine_bwd(const float* C, const float* F, const float
   if (err != cudaSuccess) return static_cast<int>(err);
   if (gap_mode < 0 || gap_mode > 2) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
-    stress_affine_bwd_kernel<<<plb::blocks_for(n), plb::kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-        C, F, gNewF, gAffine, gC, gF, n, dt, mu, lam, ys, coeff, p_mass, gap_mode, gap_eps);
+    stress_affine_bwd_kernel<kBwdThreads, kBwdMinBlocks>
+        <<<plb::blocks_for(n, kBwdThreads), kBwdThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            C, F, gNewF, gAffine, gC, gF, n, dt, mu, lam, ys / (2.0f * mu), coeff, p_mass,
+            gap_mode, gap_eps);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,17 +9,19 @@ differentiable through `svd3.Svd3`, whose damped-eigengap backward K2
 applies per particle too.
 
 The work is ~2k float operations per particle with no data shared between
-particles, so on the H100 it is bound by arithmetic and register pressure,
-not bytes (72 B in, 72 B out per particle). `csrc/stress.cu` runs one thread
-per particle with the whole chain in registers, in the same order as
-`_forward_core`: the Jacobi rotation's scale-invariant hypot and stable
-half-angles, the `cswap` sort, the det(V) sign flip, the `safe_normalize`
-Gram-Schmidt U, then von Mises and the stress.
+particles (72 B in, 72 B out). `csrc/stress.cu` runs one thread per
+particle with the whole chain in registers, in the same order as
+`_forward_core`: the Jacobi rotation (the reference's angle from one
+reciprocal and two rsqrt, as `svd3._jacobi_rotation` computes it), the
+`cswap` sort, the det(V) sign flip, the `safe_normalize` Gram-Schmidt U,
+then von Mises and the stress. On the H100 one thread's chain sets the
+time of a 10,000-particle launch; at the batched path's 320,000 the bytes
+weigh too, so the outputs leave through shared memory as whole slabs.
 
 The backward (K2, `StressAffine`) saves only C and F and recomputes the
 forward chain from them in registers (the forward device code is shared
-with K1), then applies the adjoint term by term: ~4k flops per particle
-against 144 B of input.
+with K1), then applies the adjoint term by term: ~3k float operations per
+particle against 144 B of input.
 
 The wrapper takes the plain version only for a CPU tensor; for a CUDA
 tensor it launches the kernel (float32, contiguous) or raises, and so does

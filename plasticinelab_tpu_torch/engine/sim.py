@@ -130,7 +130,11 @@ class PhysicsEnv:
     """Owns one scene's state and physics on one device. Replaces the
     reference TaichiEnv."""
 
-    def __init__(self, scene: SceneSpec, device="cuda"):
+    def __init__(self, scene: SceneSpec, nn: bool = False, loss: bool = True, *,
+                 device="cuda"):
+        """nn: accepted as the reference accepts it, and changes nothing: a
+        caller that needs a policy attaches it to `self.nn` later. loss=False
+        skips the goal and the loss state (no `compute_loss`, no reward)."""
         self.init_particles, self.particle_colors = build_particles(scene.shapes)
         scene = scene.with_n_particles(len(self.init_particles))
         self.scene = scene
@@ -141,13 +145,18 @@ class PhysicsEnv:
         self.softness = 666.0
         self._is_copy = True
         self.state: SimState = initial_state(scene, self.init_particles, self.device, self.dtype)
+        self.nn = None
         self._renderer = None
         # the observation renderer and its render function, cached per (res, spp)
         self._obs_renderer = self._obs_renderer_key = self._visual_obs_fn = None
         # the last fused step's obs and loss scalars stay on the device
         # (_pending) until compute_loss or get_obs fetches both in one
-        # device-to-host copy (_obs_host, _loss_host); set by retarget
-        self._load_target()
+        # device-to-host copy (_obs_host, _loss_host)
+        self._pending = self._obs_host = self._loss_host = None
+        self.loss_state = None
+        self._loss_enabled = loss
+        if loss:
+            self._load_target()
 
     # ------------------------------------------------------------------
     # construction helpers
@@ -186,11 +195,15 @@ class PhysicsEnv:
         compute_loss / get_obs."""
         if action is not None:
             action = np.asarray(action, dtype=np.float64)
+        self._obs_host = self._loss_host = None
+        if not self._loss_enabled:
+            self.state = mpm.env_step(self.scene, self.mats, self.state, action, self.softness)
+            self._pending = None
+            return
         self.state, grid_m = mpm.env_step_with_grid_m(
             self.scene, self.mats, self.state, action, self.softness)
         self._pending = torch.cat([observation(self.scene, self.state),
                                    self._loss_tensor(self.state, grid_m)])
-        self._obs_host = self._loss_host = None
 
     def _fetch(self):
         if self._pending is None:
@@ -203,11 +216,13 @@ class PhysicsEnv:
 
     # ---- loss bookkeeping (reference loss.py:281-302 semantics) ----
     def _reset_loss_tracker(self):
+        self._pending = self._obs_host = self._loss_host = None
+        if not self._loss_enabled:
+            return
         info = self._current_loss()
         self._start_loss = info["loss"]
         self._init_iou = info["iou"]
         self._last_loss = 0.0
-        self._pending = self._obs_host = self._loss_host = None
 
     def _current_loss(self) -> Dict[str, float]:
         grid_m = cuda_transfer.grid_mass(self.scene, self.state.x)

@@ -2,8 +2,8 @@
 
 Counterpart of the forward of `plasticinelab_tpu/engine/svd3.py`
 (`_svd3_fwd_impl`): eigendecomposition of F^T F by 6 cyclic Jacobi sweeps
-with the scale-invariant hypot and the stable half-angles, a 3-element sort
-network (descending), det(V) = +1 by flipping V's last column, U by a
+(the reference's angles, computed as the CUDA kernels compute them), a
+3-element sort network (descending), det(V) = +1 by flipping V's last column, U by a
 Gram-Schmidt with fallbacks, and signed singular values (McAdams
 convention: det(U) = det(V) = +1, the sign lands on the smallest value, so
 R = U V^T is a proper rotation). `torch.linalg.svd` follows other sort and
@@ -29,31 +29,41 @@ _N_SWEEPS = 6  # cyclic Jacobi sweeps; 3x3 converges quadratically
 
 def _jacobi_rotation(a, v, p, q):
     """One Jacobi rotation zeroing a[(p,q)]. `a`: the 6 unique components of
-    the symmetric matrix keyed (i<=j); `v`: the 9 eigenvector components."""
+    the symmetric matrix keyed (i<=j); `v`: the 9 eigenvector components.
+
+    The angle is the reference's, t = atan2(2 apq, aqq - app) / 2, through
+    the half-angle identities in the form the CUDA kernels take: one
+    reciprocal and two rsqrt. (y, z) are scaled by the reciprocal of the
+    larger magnitude, so y^2 + z^2 never underflows; u = (1 + |cos 2t|) / 2
+    in [0.5, 1] is cos^2 t or sin^2 t, whichever is larger; that one of
+    (c, s) is sqrt(u) = u rsqrt(u), the other |sin 2t| / (2 sqrt(u)), stable
+    where |cos 2t| ~ 1. Signs follow atan2's. Then (c, s) times
+    (3 - c^2 - s^2) / 2, one Newton step of rsqrt(c^2 + s^2) from 1: with
+    the kernels' approximate rsqrt, c^2 + s^2 lies ~5e-7 off 1 before it and
+    within float32 rounding after it."""
     r = 3 - p - q
     app, aqq, apq = a[(p, p)], a[(q, q)], a[(p, q)]
-    # tan(2t) = 2*apq/(aqq-app) through the half-angle identities
     y = 2.0 * apq
     z = aqq - app
-    # scale-invariant normalization before the hypot: y^2+z^2 never
-    # underflows to a denormal
     m = torch.maximum(torch.abs(y), torch.abs(z))
     ok = torch.abs(y) > 0  # apq == 0 -> identity rotation
-    m_safe = torch.where(m > 0, m, torch.ones_like(m))
-    ym = y / m_safe
-    zm = z / m_safe
+    # at least the smallest normal number: below it the reciprocal would
+    # overflow, and the exact 1/tiny scaling still keeps y^2 + z^2 normal
+    inv_m = torch.reciprocal(torch.clamp(m, min=torch.finfo(m.dtype).tiny, max=2.0 ** 126))
+    ym = y * inv_m
+    zm = z * inv_m
     rinv = torch.rsqrt(torch.clamp(ym * ym + zm * zm, min=1e-30))
     cos2t = zm * rinv
     sin2t = ym * rinv
-    # stable half-angles: the larger of (c, s) from its sqrt form, the other
-    # from sin2t = 2 c s
-    c_raw = torch.sqrt(torch.clamp((1.0 + cos2t) * 0.5, min=1e-30))
-    s_raw = torch.sqrt(torch.clamp((1.0 - cos2t) * 0.5, min=1e-30))
-    pos_branch = cos2t >= 0
-    c = torch.where(pos_branch, c_raw, torch.abs(sin2t) * 0.5 / s_raw)
-    s = torch.where(pos_branch, sin2t * 0.5 / c_raw, torch.sign(sin2t) * s_raw)
-    c = torch.where(ok, c, torch.ones_like(c))
-    s = torch.where(ok, s, torch.zeros_like(s))
+    u = (1.0 + torch.abs(cos2t)) * 0.5
+    h = torch.rsqrt(u)
+    big = u * h
+    hs = sin2t * 0.5 * h  # sign(sin 2t) |sin 2t| / (2 sqrt(u))
+    pos = cos2t >= 0
+    c = torch.where(ok, torch.where(pos, big, torch.abs(hs)), torch.ones_like(big))
+    s = torch.where(ok, torch.where(pos, hs, torch.copysign(big, sin2t)), torch.zeros_like(big))
+    k = 1.5 - 0.5 * (c * c + s * s)
+    c, s = c * k, s * k
     cc, ss, cs = c * c, s * s, c * s
 
     kpr = (min(p, r), max(p, r))

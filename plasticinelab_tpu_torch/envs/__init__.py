@@ -27,11 +27,13 @@ def _parse(env_name: str):
     return m.group(1).lower(), int(m.group(2))
 
 
-def make(env_name: str, device="cuda", sdf_loss: float = 10,
+def make(env_name: str, nn: bool = False, sdf_loss: float = 10,
          density_loss: float = 10, contact_loss: float = 1,
          soft_contact_loss: bool = False, max_episode_steps: int = 50,
          obs_mode: str = "state", image_obs_res: int = 64,
-         image_obs_spp: int = 2) -> PlasticineEnv:
+         image_obs_spp: int = 2, *, device="cuda") -> PlasticineEnv:
+    """The reference's parameters in its order; `nn` is passed down to
+    PhysicsEnv as there and changes nothing. device: keyword only."""
     task, version = _parse(env_name)
     scene = PlasticineEnv.load_scene(task, version)
     loss = dataclasses.replace(
@@ -40,6 +42,6 @@ def make(env_name: str, device="cuda", sdf_loss: float = 10,
         weight_contact=contact_loss, soft_contact=soft_contact_loss,
     )
     scene = scene.replace(env=dataclasses.replace(scene.env, loss=loss))
-    return PlasticineEnv(scene, device=device, cfg_path=f"{task}.yml",
+    return PlasticineEnv(scene, device=device, nn=nn, cfg_path=f"{task}.yml",
                          max_episode_steps=max_episode_steps, obs_mode=obs_mode,
                          image_obs_res=image_obs_res, image_obs_spp=image_obs_spp)

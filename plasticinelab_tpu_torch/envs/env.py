@@ -49,14 +49,14 @@ class Box:
 class PlasticineEnv:
     def __init__(self, scene: SceneSpec, device="cuda", cfg_path: str = "",
                  max_episode_steps: int = 50, obs_mode: str = "state",
-                 image_obs_res: int = 64, image_obs_spp: int = 2):
+                 image_obs_res: int = 64, image_obs_spp: int = 2, nn: bool = False):
         if obs_mode not in ("state", "rgb"):
             raise ValueError(f"obs_mode must be 'state' or 'rgb', got {obs_mode!r}")
         self.cfg_path = cfg_path
         self.obs_mode = obs_mode
         self._image_obs_res = image_obs_res
         self._image_obs_spp = image_obs_spp
-        self.taichi_env = PhysicsEnv(scene, device=device)
+        self.taichi_env = PhysicsEnv(scene, nn=nn, device=device)
         self.taichi_env.initialize()
         self.taichi_env.set_copy(True)
         self._init_state = self.taichi_env.get_state()
