@@ -12,8 +12,9 @@ Phases, each fatal on failure:
    Move-v1 shapes (10,000 particles, 64^3 grid), inputs from a numpy seed;
    the scatters (K3, K7 forward) under four particle orders each: none, the
    `cell_order` an env step computes, one an env step stale, a random
-   permutation; the grid update once per primitive shape; kernel and plain
-   times (the scatters' with the sorted order, the main path's);
+   permutation; the gather K5, which takes no order; the grid update once
+   per primitive shape; kernel and plain times (the scatters' with the
+   sorted order, the main path's);
 4. reference: Move-v1 reset + one fixed step against values computed by the
    reference package `plasticinelab_tpu` (loss terms, reward, observation sums);
 5. slice: `make("Move-v1", device="cuda")`, `reset()`, 50 seeded steps;
@@ -28,10 +29,12 @@ Phases, each fatal on failure:
    clamp, F scaled by 1e-3 and 1e3, a yielding cloud) and on Move-v1's C
    and F after 25 env steps tiled to 320,000 particles, held to the float64
    plain version within TOL or the case's `HARD_TOL`; the Move-v1 case also timed with the L2
-   flushed before each call (`cold_time`); then the scatter cases: K3, K7 forward and K6 on a cloud
-   spread over the whole domain (hardly two particles share a cell: every
-   lane adds alone) and on a cloud in two corners (base cells clamped at
-   both walls), B = 2, four orders each;
+   flushed before each call (`cold_time`); then the transfer cases: the
+   scatters K3, K7 forward, K6 and the gathers K5, K4, K7 backward on a
+   cloud spread over the whole domain (hardly two particles share a cell:
+   every lane adds alone) and on a cloud in two corners (base cells clamped
+   at both walls), B = 2, the scatters under four orders each, the gathers
+   per env bit for bit to B = 1 launches;
 7. gradient: 5 Move-v1 env steps through the kernels and through the plain
    versions from the same state (loss and d/d actions); a 2-step Move-v1
    loss and gradient against values computed by the reference package; the
@@ -83,10 +86,14 @@ Phases, each fatal on failure:
    B = 8 and B = 32; K1 and K2 timed on the B n particles of the batched
    path, L2-warm and L2-cold. It comes after the gradient because its plain VJPs keep their
    autograd graphs for the device times (the memory they hold is logged);
-16. device times: the scatter kernels at B = 1, 8, 32 under the sorted, a
-   stale and no order with the share of global adds left (`lane_groups`),
-   and `cell_order`'s own time and device operations per env step; each
-   kernel and plain version under torch.profiler, the
+16. device times: the scatters at B = 1, 8, 32 under the sorted, a stale
+   and no order with the share of global adds left (`lane_groups`), the
+   gathers at each B, both at B = 1 and 32 also by CUDA events L2-cold and
+   L2-warm, and `cell_order`'s own time and device operations per env
+   step; each kernel and plain version under torch.profiler (`device_ops`:
+   device-side events only, checked against the wrappers' launch counts,
+   the median of up to three profiles), K8 backward, K1 / K2 at 320,000
+   particles and the gathers once more and by CUDA events, the
    device's busy share in an rgb env step and a 1-spp frame, in 5 batched
    env steps and in a 2-step batched gradient at B = 1 and B = 32 with the
    device operations per batched substep (B = 32 within 1.2x of B = 1: no
@@ -94,8 +101,10 @@ Phases, each fatal on failure:
    profiler slows every later launch).
 Prints a JSON line of the kernels (`max_abs_err` and `rel_err`: the largest
 error against the plain version and the same relative to the scale the
-check used; `ms` and `plain_ms`: device time per call from torch.profiler; for a backward kernel, the plain version's time is that
-of its autograd backward alone; `bound_ms`: the least time of the same work
+check used; `ms` and `plain_ms`: device time per call from torch.profiler,
+or where every profile lost events the L2-warm CUDA-event median less the
+events' own time around an empty call (the log says which); for a backward
+kernel, the plain version's time is that of its autograd backward alone; `bound_ms`: the least time of the same work
 on an H100 at its published peaks, from this run's inputs; `library_ms`:
 null, no single PyTorch call computes any of these functions), then as the
 last line {"ok": true, "device": {...}}.
@@ -318,6 +327,12 @@ SOURCES = {
     "voxelize": "plasticinelab_tpu_torch/csrc/voxelize.cu",
 }
 SOURCES.update({k: SOURCES[v] for k, v in BATCHED.items()})
+# kernels whose device time is read again in the device-times phase, beside
+# CUDA events: readings that spread across runs of unchanged code (K8
+# backward, K1 at the batched path's 320,000 particles) and the gathers
+SPREAD_KEYS = ("grid_op_bwd", "grid_op_bwd_batched", "stress_affine[n=320000]",
+               "stress_affine_bwd[n=320000]", "g2p", "p2g_bwd", "grid_mass_bwd", "g2p_batched",
+               "p2g_bwd_batched", "grid_mass_bwd_batched")
 SHAPE_PARAMS = {
     "Sphere": dict(radius=0.06),
     "Capsule": dict(h=0.1, r=0.04),
@@ -371,30 +386,93 @@ def sass_counts(lib):
     return counts
 
 
-def device_ops(fn, reps=KERNEL_REPS):
-    """(device ms, device operations) per call of fn(): the summed time and
-    the count of the kernels and memsets it ran, from torch.profiler."""
-    import torch
+# The port's kernels, each launched once per launch that its wrapper counts
+# (K8 backward's pose reduction, a second kernel of the same launch, is not
+# among them).
+PORT_KERNELS = re.compile(r"\b(?:stress_affine_kernel|stress_affine_bwd_kernel|p2g_kernel|"
+                          r"p2g_bwd_kernel|g2p_kernel|g2p_bwd_kernel|grid_op_kernel|"
+                          r"grid_op_bwd_kernel|voxelize_kernel)\b")
+
+
+def counted_launches():
+    """The launches that the port's wrappers have counted so far."""
+    from plasticinelab_tpu_torch.engine import cuda_gridop, cuda_stress, cuda_transfer
+    from plasticinelab_tpu_torch.engine.renderer import cuda_voxelize
+
+    return sum(sum(m.launches.values())
+               for m in (cuda_stress, cuda_transfer, cuda_gridop, cuda_voxelize))
+
+
+def device_events(prof):
+    """The device-side events of a profile: kernels, memsets and copies, not
+    the runtime calls that launched them."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def profiled(run, cpu=False):
+    """A torch.profiler profile (device activity; with cpu, host activity
+    too) of run(), which ends in a synchronisation, and the launches that
+    the port's wrappers counted during it."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    before = counted_launches()
+    with profile(activities=activities) as prof:
+        run()
+    return prof, counted_launches() - before
+
+
+def device_ops(fn, reps=KERNEL_REPS, takes=3):
+    """(device ms, device operations) per call of fn(): the summed time and
+    the count of the device-side events of reps calls, from torch.profiler
+    (`profiled`), the median of up to `takes` profiles (two that agree
+    within 5% suffice). Late in a run
+    profiles lose events, whole calls of them (PERF.md), which a sum over
+    reps calls would under-read. So a profile counts only if its events of
+    the port's kernels number the launches that the wrappers counted over
+    the same calls and all its events are a multiple of reps (each call
+    runs the same work); failing that, if its port's kernels make up at
+    least half of the calls whole and its events a multiple of those calls,
+    it times the calls it kept. The median outvotes a profile that kept
+    every event but read a call at half its time (once, PERF.md).
+    (None, None) where no profile passed."""
+    import torch
+
+    def run():
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    return (sum(getattr(e, "self_device_time_total", 0.0) for e in events) / 1e3 / reps,
-            sum(e.count for e in events) / reps)
+
+    torch.cuda.synchronize()
+    readings = []
+    for attempt in range(takes):
+        prof, launched = profiled(run)
+        events = device_events(prof)
+        ours = sum(bool(PORT_KERNELS.search(e.name)) for e in events)
+        calls = reps
+        if not (events and ours == launched and len(events) % reps == 0):
+            per_call = launched // reps
+            calls = ours // per_call if per_call and launched % reps == 0 else 0
+            if not (calls >= reps / 2 and ours == calls * per_call and len(events) % calls == 0):
+                log(f"    profile {attempt + 1} lost events: {len(events)} device events for "
+                    f"{reps} calls, {ours} of the port's kernels for {launched} launches")
+                continue
+            log(f"    profile {attempt + 1} kept {calls} of {reps} calls whole: timing those")
+        readings.append((sum(e.device_time_total for e in events) / 1e3 / calls,
+                         len(events) / calls))
+        if len(readings) == 2 and abs(readings[0][0] - readings[1][0]) <= 0.05 * readings[0][0]:
+            break
+    if not readings:
+        return None, None
+    return sorted(readings)[(len(readings) - 1) // 2]
 
 
-def device_time(fn, reps=KERNEL_REPS, attempts=3):
-    """ms per call of fn() on the device (`device_ops`). A profile now and
-    then records no device events; it is repeated, up to `attempts` times
-    (None if none saw any)."""
-    for _ in range(attempts):
-        ms, _ = device_ops(fn, reps)
-        if ms > 0:
-            return ms
-    return None
+def device_time(fn, reps=KERNEL_REPS):
+    """ms per call of fn() on the device (`device_ops`; None if every
+    profile lost events)."""
+    return device_ops(fn, reps)[0]
 
 
 L2_FLUSH_BYTES = 512 << 20  # 10x the H100's 50 MB L2
@@ -889,8 +967,9 @@ def phase_backward():
     for gf in (0.0, 1.5, 100.0):
         sc = scene.replace(simulator=dataclasses.replace(sim, ground_friction=gf))
         grid_op_check(f"walls, ground {gf}", sc, grid_rand, pf, pf1, BWD_TOL["grid_op_bwd"])
-    rec("grid_op_bwd", *grid_op_check("Move-v1: 2 Spheres", scene, grid4, pf, pf1,
-                                         BWD_TOL["grid_op_bwd"]))
+    move = grid_op_check("Move-v1: 2 Spheres", scene, grid4, pf, pf1, BWD_TOL["grid_op_bwd"])
+    rec("grid_op_bwd", *move)
+    log_cold_time("grid_op_bwd", move[1])
     return results
 
 
@@ -1591,9 +1670,10 @@ def phase_vec_backward():
                 sc = scene.replace(primitives=(PrimitiveSpec(shape=shape, friction=0.9, **kw),))
                 grid_op_case(shape, sc, B, grid4, ct3, 400 + 10 * i,
                              POSE_TOL.get(shape, BWD_TOL["grid_op_bwd"]), True)
-        rec("grid_op_bwd_batched", *grid_op_case(
-            f"Move-v1: 2 Spheres, B={B}", scene, B, grid4, ct3, 500, BWD_TOL["grid_op_bwd"],
-            first))
+        move = grid_op_case(f"Move-v1: 2 Spheres, B={B}", scene, B, grid4, ct3, 500,
+                            BWD_TOL["grid_op_bwd"], first)
+        rec("grid_op_bwd_batched", *move)
+        log_cold_time(f"grid_op_bwd_batched[B={B}]", move[1])
 
     for B in (VEC_B, VEC_BATCHES[-1]):
         run(B)
@@ -1603,10 +1683,10 @@ def phase_vec_backward():
     return results
 
 
-def scatter_inputs(scene, x_np, B, seed):
-    """Seeded inputs of the three scatter kernels for B envs of the cloud
-    x_np, each env's cloud moved by its own noise: x, v, affine, grid_v and
-    the cotangents of G2P's outputs, all with a leading B."""
+def transfer_inputs(scene, x_np, B, seed):
+    """Seeded inputs of the transfer kernels for B envs of the cloud x_np,
+    each env's cloud moved by its own noise: x, v, affine, grid_v, the
+    cotangents of G2P's outputs and of the grids, all with a leading B."""
     n, G = len(x_np), scene.simulator.n_grid
     rng = np.random.default_rng(seed)
     x = tensor(np.clip(x_np + rng.uniform(-0.01, 0.01, (B, n, 3)), 0.0, 0.99))
@@ -1615,12 +1695,14 @@ def scatter_inputs(scene, x_np, B, seed):
                 grid_v=tensor(rng.standard_normal((B, G ** 3, 3)) * 0.5),
                 ct_v=tensor(rng.standard_normal((B, n, 3))),
                 ct_C=tensor(rng.standard_normal((B, n, 3, 3))),
-                ct_x=tensor(rng.standard_normal((B, n, 3))))
+                ct_x=tensor(rng.standard_normal((B, n, 3))),
+                ct4=tensor(rng.standard_normal((B, G ** 3, 4))),
+                ctm=tensor(rng.standard_normal((B, G ** 3))))
 
 
 def scatter_calls(scene, t, order):
-    """name -> a call of each scatter kernel on `scatter_inputs` t, walking
-    `order`."""
+    """name -> a call of each scatter kernel (K3, K7 forward, K6) on
+    `transfer_inputs` t, walking `order`."""
     from plasticinelab_tpu_torch.engine import cuda_transfer
 
     return {
@@ -1631,13 +1713,50 @@ def scatter_calls(scene, t, order):
     }
 
 
-def phase_scatter_cases():
-    """The scatter kernels (K3, K7 forward, K6) where grouping does not
-    help: a cloud spread over the whole domain, where hardly two particles
-    share a base cell so that nearly every lane adds alone, and a cloud in
-    two corners of the domain, whose base cells are clamped at both walls;
-    B = 2 envs of Move-v1's particle count, each under the four orders,
-    against the plain versions."""
+def gather_calls(scene, t, env=None):
+    """name -> a call of each gather kernel (K5, K4, K7 backward) on
+    `transfer_inputs` t, over its B envs, or with `env` a B = 1 launch on
+    that env's rows. They take no order: they walk the particles as they
+    lie (PERF.md)."""
+    from plasticinelab_tpu_torch.engine import cuda_transfer
+
+    u = t if env is None else {k: w[env] for k, w in t.items()}
+    return {
+        "g2p": lambda: (cuda_transfer.g2p_batched if env is None else cuda_transfer.g2p)(
+            scene, u["x"], u["grid_v"]),
+        "p2g_bwd": lambda: cuda_transfer.p2g_bwd(scene, u["x"], u["v"], u["aff"], u["ct4"]),
+        "grid_mass_bwd": lambda: (cuda_transfer.grid_mass_bwd(scene, u["x"], u["ctm"]),),
+    }
+
+
+def transfer_plain(scene, t):
+    """name -> the plain versions' outputs (the VJPs for the backward
+    kernels) on `transfer_inputs` t."""
+    from plasticinelab_tpu_torch.engine import cuda_transfer as ct
+
+    def vjp(fn, ins, cts):
+        return plain_vjp(fn, [t[k] for k in ins], [t[k] for k in cts])[0]
+
+    return {"p2g": (ct.p2g_plain_batched(scene, t["x"], t["v"], t["aff"]),),
+            "grid_mass": (ct.grid_mass_plain_batched(scene, t["x"]),),
+            "g2p_bwd": vjp(lambda a, g: ct.g2p_plain_batched(scene, a, g), ("x", "grid_v"),
+                           ("ct_v", "ct_C", "ct_x")),
+            "g2p": ct.g2p_plain_batched(scene, t["x"], t["grid_v"]),
+            "p2g_bwd": vjp(lambda a, b, c: ct.p2g_plain_batched(scene, a, b, c),
+                           ("x", "v", "aff"), ("ct4",)),
+            "grid_mass_bwd": vjp(lambda a: ct.grid_mass_plain_batched(scene, a), ("x",),
+                                 ("ctm",))}
+
+
+def phase_transfer_cases():
+    """The transfer kernels on clouds that the main path does not give them:
+    one spread over the whole domain, where hardly two particles share a
+    base cell (nearly every lane of a scatter adds alone, and the gathers'
+    lanes read apart), and one in two corners of the domain, whose base
+    cells are clamped at both walls; B = 2 envs of Move-v1's particle count,
+    against the plain versions (the VJPs for the backward kernels): the
+    scatters (K3, K7 forward, K6) under the four orders, the gathers (K5,
+    K4, K7 backward) also per env bit for bit against B = 1 launches."""
     import torch
 
     from plasticinelab_tpu_torch.engine import cuda_transfer
@@ -1650,49 +1769,64 @@ def phase_scatter_cases():
         "corners": np.concatenate([rng.uniform(0.0, 0.04, (n // 2, 3)),
                                    rng.uniform(0.93, 0.99, (n - n // 2, 3))]),
     }
-    log(f"phase scatter cases: B={B} envs of n={n} particles, seed {SEED + 10}")
+    tol = {**TOL, **BWD_TOL}
+    log(f"phase transfer cases: B={B} envs of n={n} particles, seed {SEED + 10}")
+    flat = lambda u: u.reshape((-1,) + u.shape[2:])  # noqa: E731
     for label, cloud in clouds.items():
-        t = scatter_inputs(scene, cloud, B, SEED + 11)
-        want = {"p2g": (cuda_transfer.p2g_plain_batched(scene, t["x"], t["v"], t["aff"]),),
-                "grid_mass": (cuda_transfer.grid_mass_plain_batched(scene, t["x"]),),
-                "g2p_bwd": plain_vjp(lambda a, g: cuda_transfer.g2p_plain_batched(scene, a, g),
-                                     [t["x"], t["grid_v"]], [t["ct_v"], t["ct_C"], t["ct_x"]])[0]}
-        tol = {"p2g": TOL["p2g"], "grid_mass": TOL["grid_mass"], "g2p_bwd": BWD_TOL["g2p_bwd"]}
-        flat = lambda u: u.reshape((-1,) + u.shape[2:])  # noqa: E731
+        t = transfer_inputs(scene, cloud, B, SEED + 11)
+        want = transfer_plain(scene, t)
         for oname, order in scatter_orders(scene, t["x"], t["v"], SEED + 12).items():
             left = float(cuda_transfer.lane_groups(scene, t["x"], order).sum()) / (B * n)
             for name, call in scatter_calls(scene, t, order).items():
                 compare(f"{name} [{label}, order: {oname}, adds left {left:.3f}]",
                         tuple(map(flat, as_tuple(call()))), tuple(map(flat, want[name])),
                         tol[name])
+        singles = [gather_calls(scene, t, b) for b in range(B)]
+        for name, call in gather_calls(scene, t).items():
+            got = as_tuple(call())
+            compare(f"{name} [{label}]", tuple(map(flat, got)), tuple(map(flat, want[name])),
+                    tol[name])
+            per_env(f"{name} [{label}]", got, [s[name]() for s in singles])
     torch.cuda.synchronize()
 
 
-def phase_scatter_times():
-    """Device ms per call (torch.profiler; the kernel and the memset of its
-    zeroed grid) of the scatter kernels at Move-v1 shapes for each B of
-    VEC_BATCHES under the order an env step computes, a stale one and none,
-    with the share of the global adds that is left after the lanes of a
-    warp that share a base cell have been summed (`lane_groups` / particles),
-    and what `cell_order` itself costs per env step."""
+def phase_transfer_times():
+    """Device ms per call (torch.profiler) of the transfer kernels at
+    Move-v1 shapes for each B of VEC_BATCHES: the scatters (with the memset
+    of their zeroed grid) under the order an env step computes, a stale one
+    and none, with the share of the global adds that is left after the
+    lanes of a warp that share a base cell have been summed (`lane_groups`
+    / particles); the gathers, which take no order; at the first and last B
+    the gathers and the sorted order's scatters also by CUDA events,
+    L2-cold and L2-warm; and what `cell_order` itself costs per env step."""
     from plasticinelab_tpu_torch.engine import cuda_transfer
     from plasticinelab_tpu_torch.engine.transfer import cell_order
 
     scene, x_np = move_scene()
     n = len(x_np)
-    log(f"phase scatter times: Move-v1 shapes, n={n}; device ms per call")
+    log(f"phase transfer times: Move-v1 shapes, n={n}; device ms per call")
     for B in VEC_BATCHES:
-        t = scatter_inputs(scene, x_np, B, SEED + 13)
+        t = transfer_inputs(scene, x_np, B, SEED + 13)
         orders = scatter_orders(scene, t["x"], t["v"], SEED + 14)
+        events = B in (VEC_BATCHES[0], VEC_BATCHES[-1])
         for oname in ("sorted", "stale", "none"):
             order = orders[oname]
             left = float(cuda_transfer.lane_groups(scene, t["x"], order).sum()) / (B * n)
-            times = {name: device_time(call)
-                     for name, call in scatter_calls(scene, t, order).items()}
+            calls = scatter_calls(scene, t, order)
+            times = {name: device_time(call) for name, call in calls.items()}
             log(f"  B={B:2d} order {oname:6s} adds left {left:.4f}: "
-                + "  ".join(f"{name} {ms:.4f}" for name, ms in times.items()))
+                + "  ".join(f"{name} {ms}" for name, ms in times.items()))
+            if oname == "sorted" and events:
+                for name, call in calls.items():
+                    log_cold_time(f"{name}[B={B}, sorted]", call)
+        calls = gather_calls(scene, t)
+        log(f"  B={B:2d} gathers: "
+            + "  ".join(f"{name} {device_time(call)}" for name, call in calls.items()))
+        if events:
+            for name, call in calls.items():
+                log_cold_time(f"{name}[B={B}]", call)
         ms, ops = device_ops(lambda: cell_order(scene, t["x"]))
-        log(f"  B={B:2d} cell_order: device {ms:.4f} ms, {ops:.1f} device operations, "
+        log(f"  B={B:2d} cell_order: device {ms} ms, {ops} device operations, "
             f"{wall_time(lambda: cell_order(scene, t['x'])):.4f} ms by CUDA events with the "
             "host's launches, once per env step")
 
@@ -1820,10 +1954,9 @@ def phase_vec_gradient():
 def vec_profile(work):
     """Device busy ms, wall ms, busy share and device operations (kernels,
     memsets, copies) of one call of work(), and the runtime's launch, copy
-    and synchronise calls torch.profiler saw."""
+    and synchronise calls torch.profiler saw; a profile that lost events is
+    taken again as in `device_ops`."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     def run():
         work()
@@ -1833,17 +1966,17 @@ def vec_profile(work):
     t0 = time.perf_counter()
     run()
     wall = (time.perf_counter() - t0) * 1e3
-    for _ in range(3):  # a profile now and then records no device events
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run()
-        events = prof.key_averages()
-        # device-side events only: with CPU activity on, each CPU op also
-        # carries the device time of the kernels it launched
-        dev = [e for e in events if e.device_type != DeviceType.CPU]
-        if sum(e.count for e in dev):
+    for attempt in range(3):
+        prof, launched = profiled(run, cpu=True)
+        dev = device_events(prof)
+        ours = sum(bool(PORT_KERNELS.search(e.name)) for e in dev)
+        if dev and ours == launched:
             break
-    busy = sum(e.self_device_time_total for e in dev) / 1e3
-    ops = sum(e.count for e in dev)
+        log(f"    profile {attempt + 1} lost events: {ours} of the port's kernels for "
+            f"{launched} launches" + ("; the busy time below under-reads" if attempt == 2 else ""))
+    busy = sum(e.device_time_total for e in dev) / 1e3
+    ops = len(dev)
+    events = prof.key_averages()
     calls = {name: sum(e.count for e in events if e.key.startswith(prefixes))
              for name, prefixes in (("launch", ("cudaLaunchKernel", "cuLaunchKernel")),
                                     ("copy", ("cudaMemcpy",)),
@@ -1900,7 +2033,7 @@ def main():
     launches, _ = phase_slice()
     results.update(phase_backward())
     results.update(phase_stress_cases())
-    phase_scatter_cases()
+    phase_transfer_cases()
     # the backward kernels' counts come from the trajectory gradient's run
     launches.update({k: v for k, v in phase_gradient().items() if k.endswith("_bwd")})
     phase_solve()
@@ -1915,15 +2048,27 @@ def main():
     results.update(phase_vec_backward())
     launches.update({k: vgrad["launches"][k] for k in BATCHED_BWD})
     # after the slice: an active profiler slows every later launch
-    phase_scatter_times()
-    log("phase device times (torch.profiler, ms per call)")
-    for k, r in results.items():
-        k_dev, p_dev = (device_time(fn) for fn in r.pop("calls"))
-        if k_dev is None or p_dev is None:
-            log(f"  {k:28s} the profiler saw no device time: keeping the CUDA-event times")
-            continue
-        r["ms"], r["plain_ms"] = k_dev, p_dev
-        log(f"  {k:28s} kernel {k_dev:.4f}  plain {p_dev:.4f}")
+    phase_transfer_times()
+    log("phase device times (ms per call: torch.profiler, or CUDA events where every profile "
+        "lost events)")
+    _, empty = cold_time(lambda: None)
+    log(f"  CUDA events around an empty call: {empty:.4f} ms (L2-warm median), taken off the "
+        "event times below")
+    calls = {k: r.pop("calls") for k, r in results.items()}
+    # the kernels' profiles first: losses began with the plain versions'
+    # profiles of tens of thousands of events (PERF.md)
+    for which, field in ((0, "ms"), (1, "plain_ms")):
+        for k, r in results.items():
+            fn, how = calls[k][which], "profiler"
+            ms = device_time(fn)
+            if ms is None:
+                ms, how = cold_time(fn)[1] - empty, "CUDA events, L2-warm"
+            r[field] = ms
+            log(f"  {k:28s} {field:8s} {ms:.4f} ({how})")
+            if which == 0 and k in SPREAD_KEYS:  # readings that spread across runs
+                cold, warm = cold_time(fn)
+                log(f"  {k:28s} again {device_time(fn)}; CUDA events L2-cold {cold:.4f} "
+                    f"L2-warm {warm:.4f}")
     te = render["rgb_env"].unwrapped.taichi_env
     busy, wall, share = busy_share(lambda: render["rgb_env"].step(np.zeros(6)))
     log(f"  rgb env step: device busy {busy} ms of {wall:.3f} ms wall, busy share {share}")

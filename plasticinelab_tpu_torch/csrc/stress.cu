@@ -284,25 +284,6 @@ __device__ __forceinline__ void load33(const float* __restrict__ g, long long p,
     for (int j = 0; j < 3; ++j) M[i][j] = g[p * 9 + i * 3 + j];
 }
 
-// A block's rows [p0, p0 + rows) of an (n, 3, 3) float32 array are one
-// contiguous slab of 9 rows floats: the whole block writes it from shared
-// memory, 16 bytes a thread where it is 16-byte aligned (always, for a
-// tensor's own storage: p0 is a multiple of 64). Stored by each thread at a
-// 36-byte stride instead, every warp's store instruction touches ~32
-// sectors for 128 bytes: the L2 then takes ~9x the write transactions.
-__device__ __forceinline__ void store_slab(float* __restrict__ g, long long p0, int rows,
-                                           const float* s) {
-  float* dst = g + p0 * 9;
-  const int m = rows * 9;
-  int done = 0;
-  if ((reinterpret_cast<unsigned long long>(dst) & 15) == 0) {
-    done = m & ~3;
-    for (int i = threadIdx.x; i < (m >> 2); i += blockDim.x)
-      reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(s)[i];
-  }
-  for (int i = done + threadIdx.x; i < m; i += blockDim.x) dst[i] = s[i];
-}
-
 // Launch shapes: threads per block, and the least blocks per SM, which caps
 // the registers (K1 at 64 a thread, K2 at 128; neither spills). 10,000
 // particles make 157 blocks of K1 and 79 of K2.
@@ -346,8 +327,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
       }
   }
   __syncthreads();
-  store_slab(affg, p0, rows, sA);
-  store_slab(newFg, p0, rows, sN);
+  plb::store_rows<9>(affg, p0, rows, sA);
+  plb::store_rows<9>(newFg, p0, rows, sN);
 }
 
 // Inverse eigengap of the SVD backward (svd3.py:211-220): 0 = the
@@ -510,8 +491,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
       }
   }
   __syncthreads();
-  store_slab(gCg, p0, rows, sC);
-  store_slab(gFg, p0, rows, sF);
+  plb::store_rows<9>(gCg, p0, rows, sC);
+  plb::store_rows<9>(gFg, p0, rows, sF);
 }
 
 }  // namespace

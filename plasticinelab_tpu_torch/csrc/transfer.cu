@@ -56,6 +56,28 @@
 // vector atomic (dear where few lanes add to cells that neighbouring warps
 // add to at the same time).
 // Sums are taken in a run-dependent order: not bitwise reproducible.
+//
+// The gathers (K5, K4, K7 backward) read the grid, or its cotangent, under
+// each particle's stencil and write the particle's rows; no atomics, and
+// each particle's sums run in a fixed order, so its outputs are the same
+// bits for any B and launch shape. The cells under the stencils of even 32
+// envs fit the L2 (~23 MB); what moved their time on the H100 was each
+// thread's chain and the particles' own rows (measured, PERF.md):
+// - they walk each env's particles as they lie: blocks of consecutive
+//   particles, grid (blocks, envs). Walking the scatters' cell order lets
+//   the lanes of a warp share cells, but puts every particle's 24 to 120
+//   bytes of rows at permuted addresses: K5 and K4 1.4-2.4x slower.
+// - K5 and K4 sum each plane a of the stencil alone, into accumulators of
+//   its own, and add the three planes at the end (stencil_sums): three
+//   chains of 9 cells, up to 1.7x faster than one running sum over 27,
+//   which K7 backward keeps (as fast there).
+// - K5 reads each k-run of 3 cells (9 floats) as the three aligned 16-byte
+//   loads that cover it, K4 each cotangent cell (16 bytes) as one load.
+// - K5 stores through shared memory, one slab per output array written 16
+//   bytes a thread, from kSlabFrom particles of all envs on.
+// Measured and left out: three lanes per particle, one plane each, combined
+// by shuffles (as fast as one thread per particle at 10,000 particles,
+// slower from 40,000 on), and registers capped at 64-96 for K4.
 #include "common.cuh"
 
 namespace {
@@ -89,12 +111,6 @@ __device__ __forceinline__ Stencil make_stencil(const float* __restrict__ x, lon
     s.dw[2][d] = fx - 0.5f;
   }
   return s;
-}
-
-// grid + env G^3 channels: the grid of the env that particle p belongs to
-__device__ __forceinline__ long long env_grid(long long p, long long n_env, int G, int channels) {
-  const long long GG = G;
-  return (p / n_env) * GG * GG * GG * channels;
 }
 
 // ---------------------------------------------------------------------------
@@ -228,54 +244,164 @@ p2g_kernel(const float* __restrict__ x, const float* __restrict__ v,
       }
 }
 
-__global__ void g2p_kernel(const float* __restrict__ x, const float* __restrict__ grid_v,
-                           float* __restrict__ new_v, float* __restrict__ new_C,
-                           float* __restrict__ new_x, long long n, long long total, int G,
-                           float inv_dx, float dt, float x_hi) {
-  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= total) return;
-  grid_v += env_grid(p, n, G, 3);
-  const Stencil s = make_stencil(x, p, G, inv_dx);
-  float vel[3] = {0.0f, 0.0f, 0.0f}, M[3][3] = {};
-  const long long GG = G;
+// ---------------------------------------------------------------------------
+// the gathers (K5, K4, K7 backward; see the header)
+// ---------------------------------------------------------------------------
+
+// A gather block: THREADS consecutive particles of env blockIdx.y, as they
+// lie. A thread past the env's last particle computes on the block's first
+// and stores nothing.
+struct GatherRow {
+  long long first;  // the block's first particle, an index into the (B n) arrays
+  int rows;         // the block's particles
+  bool valid;
+  long long p;      // this thread's particle
+};
+
+template <int THREADS>
+__device__ __forceinline__ GatherRow gather_row(long long n) {
+  GatherRow g;
+  const long long start = static_cast<long long>(blockIdx.x) * THREADS;
+  g.first = blockIdx.y * n + start;
+  g.rows = static_cast<int>(n - start < THREADS ? n - start : THREADS);
+  g.valid = static_cast<int>(threadIdx.x) < g.rows;
+  g.p = g.first + (g.valid ? threadIdx.x : 0);
+  return g;
+}
+
+// the k-run of 3 cells [cell, cell + 3) of a (G^3, 3) grid, 9 floats: from
+// the three 16-byte loads that cover it (RUNS: the grid 16-byte aligned and
+// its 3 G^3 floats a multiple of 4, so no load leaves it) or 9 scalar loads
+template <bool RUNS>
+__device__ __forceinline__ void load_run(const float* __restrict__ g, long long cell, float (&r)[9]) {
+  if (RUNS) {
+    const long long f = cell * 3;
+    const float4* q = reinterpret_cast<const float4*>(g) + (f >> 2);
+    const int sh = static_cast<int>(f & 3);
+    const float4 q0 = __ldg(q), q1 = __ldg(q + 1), q2 = __ldg(q + 2);
+    const float w[12] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w, q2.x, q2.y, q2.z, q2.w};
+    float t[10];
 #pragma unroll
-  for (int a = 0; a < 3; ++a)
+    for (int i = 0; i < 10; ++i) t[i] = (sh & 2) ? w[i + 2] : w[i];
 #pragma unroll
-    for (int b = 0; b < 3; ++b)
+    for (int i = 0; i < 9; ++i) r[i] = (sh & 1) ? t[i + 1] : t[i];
+  } else {
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float W = s.w[a][0] * s.w[b][1] * s.w[c][2];
-        const int ci = s.base[0] + a, cj = s.base[1] + b, ck = s.base[2] + c;
-        const long long cell = (ci * GG + cj) * GG + ck;
-        const float dp[3] = {ci - s.px[0], cj - s.px[1], ck - s.px[2]};
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          const float g = __ldg(grid_v + cell * 3 + i);
-          vel[i] += W * g;
-#pragma unroll
-          for (int j = 0; j < 3; ++j) M[i][j] += W * g * dp[j];
-        }
-      }
-  const float c4 = 4.0f * inv_dx;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    new_v[p * 3 + i] = vel[i];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) new_C[p * 9 + i * 3 + j] = c4 * M[i][j];
-    // advection with the domain clamp (pallas_local.py:272-281)
-    new_x[p * 3 + i] = jmax(jmin(x[p * 3 + i] + dt * vel[i], x_hi), 0.0f);
+    for (int i = 0; i < 9; ++i) r[i] = __ldg(g + cell * 3 + i);
   }
 }
 
-template <bool MASS_ONLY>
-__global__ void p2g_bwd_kernel(const float* __restrict__ x, const float* __restrict__ v,
-                               const float* __restrict__ aff, const float* __restrict__ ct,
-                               float* __restrict__ gx, float* __restrict__ gv,
-                               float* __restrict__ gaff, long long n, long long total, int G,
-                               float inv_dx, float dx, float p_mass) {
-  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= total) return;
-  ct += env_grid(p, n, G, MASS_ONLY ? 1 : 4);
+// A particle's sums over its stencil, a plane at a time: `plane(a, sums)`
+// adds plane a's 9 cells (base + (a, *, *)) to sums in (b, c) order. PLANES:
+// each plane into accumulators of its own, then P0 + P1, then + P2, three
+// independent chains of 9 adds where one running sum over the 27 cells is
+// one chain (that measured up to 1.7x slower for K4 and K5, PERF.md).
+// Without: the running sum, which K7 backward's 3 sums take as fast.
+template <bool PLANES, int N, class Plane>
+__device__ __forceinline__ void stencil_sums(float (&total)[N], Plane plane) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) total[k] = 0.0f;
+  plane(0, total);
+  if (PLANES) {
+    float next[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) next[k] = 0.0f;
+    plane(1, next);
+#pragma unroll
+    for (int k = 0; k < N; ++k) total[k] += next[k];
+#pragma unroll
+    for (int k = 0; k < N; ++k) next[k] = 0.0f;
+    plane(2, next);
+#pragma unroll
+    for (int k = 0; k < N; ++k) total[k] += next[k];
+  } else {
+    plane(1, total);
+    plane(2, total);
+  }
+}
+
+// Blocks of THREADS, grid (blocks over n, B). SLAB: the outputs leave
+// through shared memory, one slab per array.
+template <int THREADS, bool RUNS, bool SLAB>
+__global__ void __launch_bounds__(THREADS)
+g2p_kernel(const float* __restrict__ x, const float* __restrict__ grid_v,
+           float* __restrict__ new_v, float* __restrict__ new_C, float* __restrict__ new_x,
+           long long n, int G, float inv_dx, float dt, float x_hi) {
+  __shared__ __align__(16) float stage[SLAB ? THREADS * 15 : 1];
+  const long long GG = G;
+  grid_v += blockIdx.y * GG * GG * GG * 3;
+  const GatherRow me = gather_row<THREADS>(n);
+  const long long p = me.p;
+  const Stencil s = make_stencil(x, p, G, inv_dx);
+  // sums[0..2]: v = sum W g; sums[3 + 3 i + j]: sum W g_i dpos_j
+  float sums[12];
+  stencil_sums<true>(sums, [&](int a, float (&o)[12]) {
+    const int ci = s.base[0] + a;
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      const int cj = s.base[1] + b;
+      float r[9];
+      load_run<RUNS>(grid_v, (ci * GG + cj) * GG + s.base[2], r);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float W = s.w[a][0] * s.w[b][1] * s.w[c][2];
+        const float dp[3] = {ci - s.px[0], cj - s.px[1], s.base[2] + c - s.px[2]};
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          const float Wg = W * r[3 * c + i];
+          o[i] += Wg;
+#pragma unroll
+          for (int j = 0; j < 3; ++j) o[3 + 3 * i + j] += Wg * dp[j];
+        }
+      }
+    }
+  });
+  const float c4 = 4.0f * inv_dx;
+  float xo[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    // advection with the domain clamp (pallas_local.py:272-281)
+    xo[i] = jmax(jmin(x[p * 3 + i] + dt * sums[i], x_hi), 0.0f);
+  }
+  if constexpr (SLAB) {
+    const int t = threadIdx.x;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      stage[t * 3 + i] = sums[i];
+      stage[THREADS * 3 + t * 3 + i] = xo[i];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) stage[THREADS * 6 + t * 9 + i * 3 + j] = c4 * sums[3 + 3 * i + j];
+    }
+    __syncthreads();
+    plb::store_rows<3>(new_v, me.first, me.rows, stage);
+    plb::store_rows<3>(new_x, me.first, me.rows, stage + THREADS * 3);
+    plb::store_rows<9>(new_C, me.first, me.rows, stage + THREADS * 6);
+  } else if (me.valid) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      new_v[p * 3 + i] = sums[i];
+      new_x[p * 3 + i] = xo[i];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) new_C[p * 9 + i * 3 + j] = c4 * sums[3 + 3 * i + j];
+    }
+  }
+}
+
+// Blocks of THREADS, grid (blocks over n, B). The cotangent cell of the
+// momentum form is one 16-byte load.
+template <int THREADS, bool MASS_ONLY>
+__global__ void __launch_bounds__(THREADS)
+p2g_bwd_kernel(const float* __restrict__ x, const float* __restrict__ v,
+               const float* __restrict__ aff, const float* __restrict__ ct,
+               float* __restrict__ gx, float* __restrict__ gv, float* __restrict__ gaff,
+               long long n, int G, float inv_dx, float dx, float p_mass) {
+  constexpr int C = MASS_ONLY ? 1 : 4;
+  constexpr int N = MASS_ONLY ? 3 : 15;
+  const long long GG = G;
+  ct += blockIdx.y * GG * GG * GG * C;
+  const GatherRow me = gather_row<THREADS>(n);
+  if (!me.valid) return;
+  const long long p = me.p;
   const Stencil s = make_stencil(x, p, G, inv_dx);
   float vp[3] = {0.0f, 0.0f, 0.0f}, A[3][3] = {};
   if (!MASS_ONLY) {
@@ -286,10 +412,10 @@ __global__ void p2g_bwd_kernel(const float* __restrict__ x, const float* __restr
       for (int j = 0; j < 3; ++j) A[i][j] = aff[p * 9 + i * 3 + j];
     }
   }
-  float gpx[3] = {0.0f, 0.0f, 0.0f}, gvp[3] = {0.0f, 0.0f, 0.0f}, gA[3][3] = {};
-  const long long GG = G;
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
+  // sums[0..2]: d/dpx (grid units); sums[3..5]: dv; sums[6 + 3 i + j]: daffine
+  float sums[N];
+  stencil_sums<!MASS_ONLY>(sums, [&](int a, float (&o)[N]) {
+    const int ci = s.base[0] + a;
 #pragma unroll
     for (int b = 0; b < 3; ++b)
 #pragma unroll
@@ -297,42 +423,42 @@ __global__ void p2g_bwd_kernel(const float* __restrict__ x, const float* __restr
         const float W = s.w[a][0] * s.w[b][1] * s.w[c][2];
         const float dW[3] = {s.dw[a][0] * s.w[b][1] * s.w[c][2], s.w[a][0] * s.dw[b][1] * s.w[c][2],
                              s.w[a][0] * s.w[b][1] * s.dw[c][2]};
-        const int ci = s.base[0] + a, cj = s.base[1] + b, ck = s.base[2] + c;
+        const int cj = s.base[1] + b, ck = s.base[2] + c;
         const long long cell = (ci * GG + cj) * GG + ck;
         if (MASS_ONLY) {
           const float t = p_mass * __ldg(ct + cell);
 #pragma unroll
-          for (int d = 0; d < 3; ++d) gpx[d] += dW[d] * t;
+          for (int d = 0; d < 3; ++d) o[d] += dW[d] * t;
         } else {
           const float dp[3] = {ci - s.px[0], cj - s.px[1], ck - s.px[2]};
-          const float cm = __ldg(ct + cell * 4 + 3);
-          float S = p_mass * cm;  // sum over channels of contribution x cotangent
-          float cs[3];
+          const float4 cell_ct = __ldg(reinterpret_cast<const float4*>(ct) + cell);
+          const float cs[3] = {cell_ct.x, cell_ct.y, cell_ct.z};
+          float S = p_mass * cell_ct.w;  // sum over channels of contribution x cotangent
 #pragma unroll
           for (int i = 0; i < 3; ++i) {
-            cs[i] = __ldg(ct + cell * 4 + i);
             const float mom = p_mass * vp[i] + dx * (A[i][0] * dp[0] + A[i][1] * dp[1] + A[i][2] * dp[2]);
             S += mom * cs[i];
-            gvp[i] += W * p_mass * cs[i];
+            o[3 + i] += W * p_mass * cs[i];
 #pragma unroll
-            for (int j = 0; j < 3; ++j) gA[i][j] += W * dx * dp[j] * cs[i];
+            for (int j = 0; j < 3; ++j) o[6 + 3 * i + j] += W * dx * dp[j] * cs[i];
           }
 #pragma unroll
           for (int d = 0; d < 3; ++d) {
             // through the weights, and through dpos_d (d dpos_d / dpx_d = -1)
             const float through_dpos = cs[0] * A[0][d] + cs[1] * A[1][d] + cs[2] * A[2][d];
-            gpx[d] += dW[d] * S - W * dx * through_dpos;
+            o[d] += dW[d] * S - W * dx * through_dpos;
           }
         }
       }
+  });
 #pragma unroll
-  for (int d = 0; d < 3; ++d) gx[p * 3 + d] = inv_dx * gpx[d];
+  for (int d = 0; d < 3; ++d) gx[p * 3 + d] = inv_dx * sums[d];
   if (!MASS_ONLY) {
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      gv[p * 3 + i] = gvp[i];
+      gv[p * 3 + i] = sums[3 + i];
 #pragma unroll
-      for (int j = 0; j < 3; ++j) gaff[p * 9 + i * 3 + j] = gA[i][j];
+      for (int j = 0; j < 3; ++j) gaff[p * 9 + i * 3 + j] = sums[6 + 3 * i + j];
     }
   }
 }
@@ -421,6 +547,47 @@ inline dim3 scatter_grid(long long n, int B) {
               static_cast<unsigned int>(B));
 }
 
+// The gathers' launch shapes (measured on the H100, PERF.md): K4 in blocks
+// of kGatherThreads, K7 backward of kMassThreads; K5 in blocks of
+// kGatherThreads below kSlabFrom particles of all envs, from there on of
+// kSlabThreads whose outputs leave as slabs.
+constexpr int kGatherThreads = 128, kSlabThreads = 256, kMassThreads = 256;
+constexpr long long kSlabFrom = 20000;
+
+template <int THREADS>
+inline dim3 gather_grid(long long n, int B) {
+  return dim3(static_cast<unsigned int>((n + THREADS - 1) / THREADS), static_cast<unsigned int>(B));
+}
+
+template <int THREADS, bool SLAB>
+void launch_g2p(const float* x, const float* grid_v, float* new_v, float* new_C, float* new_x,
+                long long n, int B, int G, float inv_dx, float dt, float x_hi, cudaStream_t s) {
+  // 16-byte runs need the grids 16-byte aligned, each env's 3 G^3 floats a
+  // multiple of 4
+  if (G % 2 == 0 && (reinterpret_cast<unsigned long long>(grid_v) & 15) == 0) {
+    g2p_kernel<THREADS, true, SLAB><<<gather_grid<THREADS>(n, B), THREADS, 0, s>>>(
+        x, grid_v, new_v, new_C, new_x, n, G, inv_dx, dt, x_hi);
+  } else {
+    g2p_kernel<THREADS, false, SLAB><<<gather_grid<THREADS>(n, B), THREADS, 0, s>>>(
+        x, grid_v, new_v, new_C, new_x, n, G, inv_dx, dt, x_hi);
+  }
+}
+
+template <bool MASS_ONLY>
+int p2g_bwd_entry(const float* x, const float* v, const float* affine, const float* ct,
+                  float* gx, float* gv, float* gaffine, long long n, int B, int G, float inv_dx,
+                  float dx, float p_mass, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int threads = MASS_ONLY ? kMassThreads : kGatherThreads;
+  if (n > 0 && B > 0) {
+    p2g_bwd_kernel<threads, MASS_ONLY><<<gather_grid<threads>(n, B), threads, 0,
+                                         static_cast<cudaStream_t>(stream)>>>(
+        x, v, affine, ct, gx, gv, gaffine, n, G, inv_dx, dx, p_mass);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Every entry point takes B envs of n particles each (x (B, n, 3), grids and
@@ -457,10 +624,15 @@ extern "C" int plb_g2p(const float* x, const float* grid_v, float* new_v, float*
                        float x_hi, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = n * B;
-  if (total > 0) {
-    g2p_kernel<<<plb::blocks_for(total), plb::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        x, grid_v, new_v, new_C, new_x, n, total, G, inv_dx, dt, x_hi);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n > 0 && B > 0) {
+    if (n * B < kSlabFrom) {
+      launch_g2p<kGatherThreads, false>(x, grid_v, new_v, new_C, new_x, n, B, G, inv_dx, dt,
+                                        x_hi, s);
+    } else {
+      launch_g2p<kSlabThreads, true>(x, grid_v, new_v, new_C, new_x, n, B, G, inv_dx, dt, x_hi,
+                                     s);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -468,30 +640,14 @@ extern "C" int plb_g2p(const float* x, const float* grid_v, float* new_v, float*
 extern "C" int plb_p2g_bwd(const float* x, const float* v, const float* affine, const float* ct,
                            float* gx, float* gv, float* gaffine, long long n, int B, int G,
                            float inv_dx, float dx, float p_mass, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = n * B;
-  if (total > 0) {
-    p2g_bwd_kernel<false><<<plb::blocks_for(total), plb::kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(x, v, affine, ct, gx, gv,
-                                                                 gaffine, n, total, G, inv_dx, dx,
-                                                                 p_mass);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return p2g_bwd_entry<false>(x, v, affine, ct, gx, gv, gaffine, n, B, G, inv_dx, dx, p_mass,
+                              device, stream);
 }
 
 extern "C" int plb_grid_mass_bwd(const float* x, const float* ct, float* gx, long long n, int B,
                                  int G, float inv_dx, float p_mass, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = n * B;
-  if (total > 0) {
-    p2g_bwd_kernel<true><<<plb::blocks_for(total), plb::kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(x, nullptr, nullptr, ct, gx,
-                                                                nullptr, nullptr, n, total, G,
-                                                                inv_dx, 0.0f, p_mass);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return p2g_bwd_entry<true>(x, nullptr, nullptr, ct, gx, nullptr, nullptr, n, B, G, inv_dx,
+                             0.0f, p_mass, device, stream);
 }
 
 // g_grid (B, G^3, 3) comes in zeroed; `order` as in plb_p2g

@@ -31,16 +31,22 @@ the H100 the natural form is the reference's own: one thread per particle,
   costs time only. `lane_groups` counts the adds that remain. The state is
   never permuted. (A shared-memory tile per block under the groups, and
   16-byte vector atomics, were measured slower on this card: PERF.md.)
-- G2P is bound by the latency of its 27 dependent gathers per particle; the
-  grid is read-only and L2-resident.
 - Atomics sum in a run-dependent order, so P2G and everything downstream
   is not bitwise reproducible (the TPU transfers are). The tests bound the
   difference to the plain version instead.
-- The backward gathers (K4, K7) read the L2-resident cotangent grid per
-  particle with no atomics; K6 scatters its grid cotangent like K3, through
-  the order of its forward call, and gathers dx per particle. The dx terms
-  run through the spline weight derivatives (chained by inv_dx) and through
-  dpos = cell - x inv_dx.
+- The gathers, G2P (K5) and the backward gathers (K4, K7 backward), read
+  the grid or its cotangent under each particle's stencil with no atomics,
+  in a fixed order per particle: the same bits for any B. They take no
+  order: they walk the particles as they lie, because walking the cell
+  order put each particle's rows at permuted addresses and measured
+  1.4-2.4x slower on the H100 (K5, K4). They sum each plane of the stencil alone and the
+  three at the end (shorter chains than one running sum), load 16 bytes at
+  a time, and K5 stores its rows as slabs through shared memory when a
+  launch has many particles (PERF.md).
+- K6 scatters its grid cotangent like K3, through the order of its forward
+  call, and gathers dx per particle. The dx terms run through the spline
+  weight derivatives (chained by inv_dx) and through dpos = cell - x
+  inv_dx.
 
 Every kernel, forward and backward, takes a batch of envs (x (B, n, 3),
 grids and their cotangents (B, G^3, C), order (B, n)), one thread per
@@ -239,6 +245,9 @@ def p2g_bwd(scene: SceneSpec, x, v, affine, ct):
     cb.require(ct, "ct", x.shape[:-2] + (sim.n_grid ** 3, 4), x.device)
     for t, arg in ((x, "x"), (v, "v"), (affine, "affine"), (ct, "ct")):
         cb.require_kernel_input(t, arg)
+    if ct.data_ptr() % 16:
+        raise ValueError("ct: the kernel reads its 16-byte cells whole, so it takes a 16-byte "
+                         "aligned tensor")
     gx, gv, gaff = torch.empty_like(x), torch.empty_like(v), torch.empty_like(affine)
     err = cb.library().plb_p2g_bwd(
         x.data_ptr(), v.data_ptr(), affine.data_ptr(), ct.data_ptr(), gx.data_ptr(),
@@ -252,7 +261,7 @@ def p2g_bwd(scene: SceneSpec, x, v, affine, ct):
 
 class P2G(torch.autograd.Function):
     """(x, v, affine) -> grid4: forward K3 walking `order`, backward K4
-    (saves x, v, affine); one env or B envs."""
+    (saves x, v, affine; K4 takes no order); one env or B envs."""
 
     @staticmethod
     def forward(ctx, x, v, affine, order, scene):
