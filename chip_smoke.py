@@ -13,8 +13,8 @@ Phases, each fatal on failure:
    the scatters (K3, K7 forward) under four particle orders each: none, the
    `cell_order` an env step computes, one an env step stale, a random
    permutation; the gather K5, which takes no order; the grid update once
-   per primitive shape; kernel and plain times (the scatters' with the
-   sorted order, the main path's);
+   per primitive shape and on a grid without mass; kernel and plain times
+   (the scatters' with the sorted order, the main path's);
 4. reference: Move-v1 reset + one fixed step against values computed by the
    reference package `plasticinelab_tpu` (loss terms, reward, observation sums);
 5. slice: `make("Move-v1", device="cuda")`, `reset()`, 50 seeded steps;
@@ -22,8 +22,11 @@ Phases, each fatal on failure:
    through the kernels and through the plain versions from the same state.
 6. backward kernels: each backward kernel against the autograd VJP of its
    plain version on the card, at Move-v1 shapes, seeded cotangents; the
-   grid update's backward once per primitive shape and for the walls and
-   the three ground regimes, its pose cotangents compared too; K6 under the
+   grid update's backward once per primitive shape, for the walls and the
+   three ground regimes, for a sphere whose contact crosses a boundary of
+   its blocks and for a grid without mass (zeros), its pose cotangents
+   compared too, every case with cells out of contact next to cells in
+   contact and two calls bit for bit; K6 under the
    four orders; then K1 and K2 where the SVD is hardest (F = I with and
    without C, pure rotations, two equal singular values, one below the 0.05
    clamp, F scaled by 1e-3 and 1e3, a yielding cloud) and on Move-v1's C
@@ -81,8 +84,10 @@ Phases, each fatal on failure:
    per env against B = 1 launches of the same kernels: K4-b, K7-bwd-b,
    K6-b's dx and K8-bwd-b (d grid4 and d poses) bit for bit, K6-b's
    d grid_v within tolerance (atomics) and, at both B, under the four
-   orders; K8-bwd-b once per primitive shape,
-   each env with its own poses and softness; kernel and plain times at
+   orders; K8-bwd-b once per primitive shape and on a batch without mass,
+   each env with its own poses and softness, two calls bit for bit at
+   B = 8; the share of cells, warps and K8 backward blocks with mass;
+   kernel and plain times at
    B = 8 and B = 32; K1 and K2 timed on the B n particles of the batched
    path, L2-warm and L2-cold. It comes after the gradient because its plain VJPs keep their
    autograd graphs for the device times (the memory they hold is logged);
@@ -92,8 +97,10 @@ Phases, each fatal on failure:
    L2-warm, and `cell_order`'s own time and device operations per env
    step; each kernel and plain version under torch.profiler (`device_ops`:
    device-side events only, checked against the wrappers' launch counts,
-   the median of up to three profiles), K8 backward, K1 / K2 at 320,000
-   particles and the gathers once more and by CUDA events, the
+   the median of up to three profiles; a plain version's profiles take
+   PLAIN_REPS calls), K8 forward and backward at B = 1, 8 and 32, K1 / K2
+   at 320,000 particles and the gathers once more and by CUDA events
+   (L2-cold and L2-warm), the
    device's busy share in an rgb env step and a 1-spp frame, in 5 batched
    env steps and in a 2-step batched gradient at B = 1 and B = 32 with the
    device operations per batched substep (B = 32 within 1.2x of B = 1: no
@@ -125,6 +132,7 @@ DEVICE = "cuda"
 SEED = 0
 STEPS = 50
 KERNEL_REPS = 20
+PLAIN_REPS = 5  # calls per profile of a plain version in the device-times phase
 
 # Tolerances, kernel vs plain version, both float32 on the card, relative to
 # the largest |value| of the plain output:
@@ -276,8 +284,9 @@ PEAK_F32_S = 67e12
 # not counted): per particle for the stress and transfer kernels, per cell
 # with mass for the grid update, per (particle, offset) update for the
 # voxelizer. A grid that a kernel only gathers from under its particles
-# (K4, K5, K6, K7 backward) counts by its touched cells (`Gathered`): what
-# this run's data needs, not the whole grid.
+# (K4, K5, K6, K7 backward), and the cotangent that K8 backward reads only
+# at cells with mass, count by the cells read (`Gathered`): what this run's
+# data needs, not the whole grid.
 # The stress kernels' counts are those of `csrc/stress.cu` run for one
 # particle with every float operation counted (K2 recomputes K1's chain
 # before its adjoint; SASS has 1,848 and 2,752 instructions per particle).
@@ -328,9 +337,11 @@ SOURCES = {
 }
 SOURCES.update({k: SOURCES[v] for k, v in BATCHED.items()})
 # kernels whose device time is read again in the device-times phase, beside
-# CUDA events: readings that spread across runs of unchanged code (K8
-# backward, K1 at the batched path's 320,000 particles) and the gathers
-SPREAD_KEYS = ("grid_op_bwd", "grid_op_bwd_batched", "stress_affine[n=320000]",
+# CUDA events L2-cold and L2-warm: readings that spread across runs of
+# unchanged code (K1 at the batched path's 320,000 particles), the gathers
+# and K8 forward and backward at B = 1, 8 and 32
+SPREAD_KEYS = ("grid_op", "grid_op_batched[B=8]", "grid_op_batched", "grid_op_bwd",
+               "grid_op_bwd_batched[B=8]", "grid_op_bwd_batched", "stress_affine[n=320000]",
                "stress_affine_bwd[n=320000]", "g2p", "p2g_bwd", "grid_mass_bwd", "g2p_batched",
                "p2g_bwd_batched", "grid_mass_bwd_batched")
 SHAPE_PARAMS = {
@@ -342,6 +353,10 @@ SHAPE_PARAMS = {
     "Torus": dict(tx=0.06, ty=0.025),
     "Box": dict(size=(0.05, 0.04, 0.06)),
 }
+# Several primitives of mixed shapes (Rope-v1's two Spheres and Cylinder,
+# and a Box): the grid update's all-shapes kernels at k > 1, a Sphere beside
+# other shapes (a scene of Spheres alone takes the sphere-only kernels).
+MIXED_SHAPES = ("Sphere", "Sphere", "Cylinder", "Box")
 
 
 def log(msg):
@@ -387,8 +402,7 @@ def sass_counts(lib):
 
 
 # The port's kernels, each launched once per launch that its wrapper counts
-# (K8 backward's pose reduction, a second kernel of the same launch, is not
-# among them).
+# (K8 backward sums its pose cotangents in the same launch: one kernel).
 PORT_KERNELS = re.compile(r"\b(?:stress_affine_kernel|stress_affine_bwd_kernel|p2g_kernel|"
                           r"p2g_bwd_kernel|g2p_kernel|g2p_bwd_kernel|grid_op_kernel|"
                           r"grid_op_bwd_kernel|voxelize_kernel)\b")
@@ -509,9 +523,10 @@ def log_cold_time(key, fn):
 
 
 class Gathered:
-    """An input grid of which a call needs only the cells under its
-    particles' stencils, `share` of all cells (`touched_share`): the gathers
-    of K4, K5, K6 and K7 backward read nothing else of it."""
+    """An input grid of which a call needs only `share` of the cells: the
+    gathers of K4, K5, K6 and K7 backward read only the cells under their
+    particles' stencils (`touched_share`), K8 backward its cotangent only at
+    cells with mass (`mass_share`)."""
 
     def __init__(self, grid, share):
         self.grid, self.share = grid, share
@@ -524,6 +539,81 @@ def touched_share(scene, x):
 
     mass = cuda_transfer.grid_mass_plain_batched(scene, x.reshape((-1,) + x.shape[-2:]))
     return float((mass > 0).double().mean())
+
+
+def mass_share(grid4):
+    """The share of cells with mass in grid4 (G^3, 4) or (B, G^3, 4)."""
+    return float((grid4[..., 3] > 1e-12).double().mean())
+
+
+def mixed_scene(scene):
+    """scene with the primitives of MIXED_SHAPES, at SHAPE_PARAMS' sizes."""
+    from plasticinelab_tpu_torch.config.spec import PrimitiveSpec
+
+    return scene.replace(primitives=tuple(
+        PrimitiveSpec(shape=s, friction=0.9, **SHAPE_PARAMS[s]) for s in MIXED_SHAPES))
+
+
+def pose_tols(scene):
+    """Each primitive's tolerance on its pose cotangents."""
+    return tuple(POSE_TOL.get(p.shape, BWD_TOL["grid_op_bwd"]) for p in scene.primitives)
+
+
+def compare_poses(name, got, want, tol):
+    """K8 backward's pose cotangents (..., k, 16) against want: within tol
+    of the largest; with a tuple, each primitive's rows within its own tol
+    of their largest, and each primitive must have a pose gradient."""
+    if not isinstance(tol, tuple):
+        compare(f"{name} d poses", (got.reshape(-1, 16),), (want.reshape(-1, 16),), tol)
+        return
+    for i, t in enumerate(tol):
+        w = want[..., i, :].reshape(-1, 16)
+        compare(f"{name} d poses [primitive {i}]", (got[..., i, :].reshape(-1, 16),), (w,), t)
+        if not float(w.abs().max()) > 0:
+            raise AssertionError(f"{name}: primitive {i} has no pose gradient")
+
+
+def mass_shares(label, grid4):
+    """Logs the share of cells with mass in grid4 (G^3, 4) or (B, G^3, 4),
+    and of warps (32 cells) and of K8 backward blocks with any."""
+    import torch
+
+    from plasticinelab_tpu_torch.engine import cuda_gridop
+
+    m = (grid4[..., 3] > 1e-12).reshape(-1, grid4.shape[-2])
+    per = cuda_gridop.BWD_BLOCK_CELLS
+    blocks = torch.cat([m, m.new_zeros((m.shape[0], -m.shape[1] % per))], dim=1)
+    log(f"  {label}: cells with mass {float(m.double().mean()):.5f} ({int(m.sum())} of "
+        f"{m.numel()}), warps (32 cells) with any "
+        f"{float(m.reshape(m.shape[0], -1, 32).any(-1).double().mean()):.5f}, K8 backward "
+        f"blocks ({per} cells) with any "
+        f"{float(blocks.reshape(m.shape[0], -1, per).any(-1).double().mean()):.5f}")
+
+
+def contact_cells(scene, grid4, pose_f, softness):
+    """(cells with mass where some primitive's contact condition holds on the
+    float SDF, cells with mass next to one of those (6 neighbours) where none
+    holds) of one env's grid4 (G^3, 4) at poses pose_f (pos (k, 3), rot
+    (k, 4), gap (k,))."""
+    import torch
+
+    from plasticinelab_tpu_torch.engine import cuda_gridop
+    from plasticinelab_tpu_torch.engine import primitives as prim
+
+    G = scene.simulator.n_grid
+    gp = cuda_gridop.grid_coords(G, grid4.device).to(grid4.dtype) * scene.simulator.dx
+    hit = torch.zeros(G ** 3, dtype=torch.bool, device=grid4.device)
+    for i, p in enumerate(scene.primitives):
+        d = prim.sdf(p, pose_f[0][i], pose_f[1][i], pose_f[2][i], gp)
+        hit |= (torch.clamp(torch.exp(-d * softness), max=1.0) > 0.1) | (d <= 0)
+    mass = grid4[:, 3] > 1e-12
+    hit = (hit & mass).reshape(G, G, G)
+    near = torch.zeros_like(hit)
+    for d in range(3):
+        n = hit.shape[d]
+        near.narrow(d, 1, n - 1).logical_or_(hit.narrow(d, 0, n - 1))
+        near.narrow(d, 0, n - 1).logical_or_(hit.narrow(d, 1, n - 1))
+    return hit.reshape(-1), (near & ~hit).reshape(-1) & mass
 
 
 def bound(name, tensors, items):
@@ -715,6 +805,8 @@ def move_stress_inputs(steps, seed):
 def phase_kernels():
     import dataclasses
 
+    import torch
+
     from plasticinelab_tpu_torch.config.spec import PrimitiveSpec
     from plasticinelab_tpu_torch.engine import cuda_gridop, cuda_stress, cuda_transfer
     from plasticinelab_tpu_torch.engine.state import default_materials
@@ -771,6 +863,11 @@ def phase_kernels():
         compare(f"grid_op[{shape}]", (cuda_gridop.grid_op(sc, grid4, pf, pf1, 666.0),),
                 (cuda_gridop.grid_op_plain(sc, grid4, pf, pf1, 666.0),), TOL["grid_op"],
                 FLIP_BUDGET)
+    sc = mixed_scene(scene)
+    pf, pf1 = test_poses(len(sc.primitives), 107, center)
+    compare(f"grid_op[mixed: {', '.join(MIXED_SHAPES)}]",
+            (cuda_gridop.grid_op(sc, grid4, pf, pf1, 666.0),),
+            (cuda_gridop.grid_op_plain(sc, grid4, pf, pf1, 666.0),), TOL["grid_op"], FLIP_BUDGET)
     pf, pf1 = test_poses(len(scene.primitives), 99, center)
     grid_rand = random_grid(rng, G)
     for gf in (0.0, 1.5, 100.0):
@@ -779,9 +876,14 @@ def phase_kernels():
                 (cuda_gridop.grid_op(sc, grid_rand, pf, pf1, 666.0),),
                 (cuda_gridop.grid_op_plain(sc, grid_rand, pf, pf1, 666.0),), TOL["grid_op"],
                 FLIP_BUDGET)
+    empty = cuda_gridop.grid_op(scene, torch.zeros_like(grid4), pf, pf1, 666.0)
+    if not bool((empty == 0).all()):
+        raise AssertionError("grid_op on a grid without mass: non-zero velocities")
+    log("  grid_op[no mass]             every velocity 0")
     k = lambda: (cuda_gridop.grid_op(scene, grid4, pf, pf1, 666.0),)  # noqa: E731
     p = lambda: (cuda_gridop.grid_op_plain(scene, grid4, pf, pf1, 666.0),)  # noqa: E731
     err = compare("grid_op[Move-v1: 2 Spheres]", k(), p(), TOL["grid_op"], FLIP_BUDGET)
+    mass_shares("Move-v1 grid (P2G of the initial cloud)", grid4)
     massive = int((grid4[:, 3] > 1e-12).sum())
     rec("grid_op", err, k, p, (grid4, *pf, *pf1), massive)
     return results
@@ -881,6 +983,8 @@ def phase_stress_cases():
 def phase_backward():
     import dataclasses
 
+    import torch
+
     from plasticinelab_tpu_torch.config.spec import PrimitiveSpec
     from plasticinelab_tpu_torch.engine import cuda_gridop, cuda_stress, cuda_transfer
     from plasticinelab_tpu_torch.engine.state import default_materials
@@ -939,7 +1043,9 @@ def phase_backward():
 
     def grid_op_check(label, sc, g4, pf, pf1, pose_tol):
         """K8 backward vs the plain VJP: d grid4 rows (flips counted) and
-        the (k, 16) pose cotangents."""
+        the (k, 16) pose cotangents (`compare_poses`); two calls bit for
+        bit; the case has cells in contact and cells next to them out of
+        contact (float SDF)."""
         want, p = plain_vjp(
             lambda g, *ps: cuda_gridop.grid_op_plain(sc, g, ps[:3], ps[3:], 666.0),
             [g4, *pf, *pf1], [ct3])
@@ -947,14 +1053,23 @@ def phase_backward():
         poses = cuda_gridop.pack_poses(pf, pf1).contiguous()
         k = lambda: cuda_gridop.grid_op_bwd(sc, g4, poses, 666.0, ct3)  # noqa: E731
         dg4, dposes = k()
+        again = k()
+        if not (torch.equal(dg4, again[0]) and torch.equal(dposes, again[1])):
+            raise AssertionError(f"grid_op_bwd[{label}]: two calls on the same inputs differ")
+        hit, near = contact_cells(sc, g4, pf, 666.0)
+        log(f"  grid_op_bwd[{label}]: {int(hit.sum())} cells in contact, {int(near.sum())} "
+            "next to them out of contact; two calls bit for bit")
+        if not (hit.any() and near.any()):
+            raise AssertionError(f"grid_op_bwd[{label}]: no contact edge in the case")
         err = compare(f"grid_op_bwd[{label}] d grid4", (dg4,), (want[0],),
                       BWD_TOL["grid_op_bwd"], FLIP_BUDGET)
         compare(f"grid_op_bwd[{label}] d grid4 by row", (dg4,), (want[0],),
                 BWD_TOL["grid_op_bwd"], FLIP_BUDGET, per_row=True)
-        compare(f"grid_op_bwd[{label}] d poses", (dposes,), (want_poses,), pose_tol)
+        compare_poses(f"grid_op_bwd[{label}]", dposes, want_poses, pose_tol)
         if not float(want_poses.abs().max()) > 0:
             raise AssertionError(f"grid_op_bwd[{label}]: no pose gradient to compare")
-        return err, k, p, (g4, poses, ct3), int((g4[:, 3] > 1e-12).sum())
+        return (err, k, p, (g4, poses, Gathered(ct3, mass_share(g4))),
+                int((g4[:, 3] > 1e-12).sum()), hit)
 
     grid4 = cuda_transfer.p2g_plain(scene, x, v, sim.p_mass * C)
     center = x_np.mean(axis=0)
@@ -962,13 +1077,36 @@ def phase_backward():
         sc = scene.replace(primitives=(PrimitiveSpec(shape=shape, friction=0.9, **kw),))
         pf, pf1 = test_poses(1, 200 + i, center)
         grid_op_check(shape, sc, grid4, pf, pf1, POSE_TOL.get(shape, BWD_TOL["grid_op_bwd"]))
+    sc = mixed_scene(scene)
+    pf, pf1 = test_poses(len(sc.primitives), 207, center)
+    grid_op_check(f"mixed: {', '.join(MIXED_SHAPES)}", sc, grid4, pf, pf1, pose_tols(sc))
+    # a Sphere whose contact crosses a boundary between the backward's
+    # blocks: rows y = yb - 1 and yb of cells at the same x
+    rows = max(1, cuda_gridop.BWD_BLOCK_CELLS // G)
+    yb = rows * round(center[1] / sim.dx / rows)
+    sc = scene.replace(primitives=(PrimitiveSpec(shape="Sphere", friction=0.9,
+                                                 **SHAPE_PARAMS["Sphere"]),))
+    pos = np.array([[center[0], yb * sim.dx, center[2]]])
+    quat = np.array([[1.0, 0.0, 0.0, 0.0]])
+    pf = (t(pos), t(quat), t([0.0]))
+    pf1 = (t(pos + [0.0, 1e-3, 0.0]), t(quat), t([0.0]))
+    hit = grid_op_check(f"Sphere across block rows y = {yb - 1} | {yb}", sc, grid4, pf, pf1,
+                        BWD_TOL["grid_op_bwd"])[-1].reshape(G, G, G)
+    if not bool((hit[:, yb - 1].any(dim=1) & hit[:, yb].any(dim=1)).any()):
+        raise AssertionError("the block-boundary case has no contact on both sides")
     pf, pf1 = test_poses(len(scene.primitives), 199, center)
     grid_rand = random_grid(rng, G)
     for gf in (0.0, 1.5, 100.0):
         sc = scene.replace(simulator=dataclasses.replace(sim, ground_friction=gf))
         grid_op_check(f"walls, ground {gf}", sc, grid_rand, pf, pf1, BWD_TOL["grid_op_bwd"])
+    # a grid without mass: zeros, no NaN
+    poses = cuda_gridop.pack_poses(pf, pf1).contiguous()
+    dg4, dposes = cuda_gridop.grid_op_bwd(scene, torch.zeros_like(grid4), poses, 666.0, ct3)
+    if not (bool((dg4 == 0).all()) and bool((dposes == 0).all())):
+        raise AssertionError("grid_op_bwd on a grid without mass: non-zero cotangents")
+    log("  grid_op_bwd[no mass]         d grid4 and d poses all 0")
     move = grid_op_check("Move-v1: 2 Spheres", scene, grid4, pf, pf1, BWD_TOL["grid_op_bwd"])
-    rec("grid_op_bwd", *move)
+    rec("grid_op_bwd", *move[:-1])
     log_cold_time("grid_op_bwd", move[1])
     return results
 
@@ -1445,6 +1583,15 @@ def phase_vec_kernels():
                 per_env(name, got, [single(b) for b in range(B)], env_tol)
             record(results, name if B == VEC_BATCHES[-1] else f"{name}[B={B}]", name, err, kern,
                    plain, inputs, items)
+        if B == VEC_B:  # several primitives of mixed shapes
+            sc = mixed_scene(scene)
+            mf, mf1 = batch_poses(B, len(sc.primitives), 370, center)
+            got = cuda_gridop.grid_op_batched(sc, grid4, mf, mf1, softness)
+            want = cuda_gridop.grid_op_plain_batched(sc, grid4, mf, mf1, softness)
+            label = f"grid_op_batched [mixed: {', '.join(MIXED_SHAPES)}, B={B}]"
+            compare(label, (got,), (want,), TOL["grid_op"], FLIP_BUDGET * B)
+            per_env(label, (got,), [cuda_gridop.grid_op(sc, grid4[b], env(mf, b), env(mf1, b),
+                                                        float(softness[b])) for b in range(B)])
 
     for B in (VEC_B, VEC_BATCHES[-1]):
         run(B)
@@ -1558,8 +1705,9 @@ def phase_vec_backward():
 
     def grid_op_case(label, sc, B, grid4, ct3, seed, pose_tol, singles):
         """K8-bwd-b of scene sc against the plain VJP (d grid4 rows with
-        flips counted, and the pose cotangents) and, with `singles`, per env
-        bit for bit against B = 1 launches."""
+        flips counted, and the pose cotangents, `compare_poses`) and, with
+        `singles`, two calls and per env against B = 1 launches bit for
+        bit."""
         pf, pf1 = batch_poses(B, len(sc.primitives), seed, center)
         softness = tensor(np.where(np.arange(B) % 2, 333.0, 666.0))
         want, p = plain_vjp(
@@ -1569,21 +1717,26 @@ def phase_vec_backward():
         poses = cuda_gridop.pack_poses(pf, pf1).contiguous()
         k = lambda: cuda_gridop.grid_op_bwd(sc, grid4, poses, softness, ct3)  # noqa: E731
         dg4, dposes = k()
+        if singles:
+            again = k()
+            if not (torch.equal(dg4, again[0]) and torch.equal(dposes, again[1])):
+                raise AssertionError(f"grid_op_bwd_batched[{label}]: two calls differ")
         flat = lambda t: t.reshape(-1, t.shape[-1])  # noqa: E731
         err = compare(f"grid_op_bwd_batched[{label}] d grid4", (flat(dg4),), (flat(want[0]),),
                       BWD_TOL["grid_op_bwd"], FLIP_BUDGET * B)
         compare(f"grid_op_bwd_batched[{label}] by row", (flat(dg4),), (flat(want[0]),),
                 BWD_TOL["grid_op_bwd"], FLIP_BUDGET * B, per_row=True)
-        compare(f"grid_op_bwd_batched[{label}] d poses", (flat(dposes),), (flat(want_poses),),
-                pose_tol)
+        compare_poses(f"grid_op_bwd_batched[{label}]", dposes, want_poses, pose_tol)
         for b in range(B):  # every env has its own pose gradient
             if not float(want_poses[b].abs().max()) > 0:
                 raise AssertionError(f"grid_op_bwd_batched[{label}]: env {b} has no pose gradient")
         if singles:
+            log(f"  grid_op_bwd_batched[{label}]: two calls bit for bit")
             per_env(f"grid_op_bwd_batched[{label}]", (dg4, dposes),
                     [cuda_gridop.grid_op_bwd(sc, grid4[b], poses[b], softness[b:b + 1], ct3[b])
                      for b in range(B)])
-        return err, k, p, (grid4, poses, softness, ct3), int((grid4[..., 3] > 1e-12).sum())
+        return (err, k, p, (grid4, poses, softness, Gathered(ct3, mass_share(grid4))),
+                int((grid4[..., 3] > 1e-12).sum()))
 
     def run(B):
         log(f"phase vec backward kernels: Move-v1 shapes, B={B} envs of n={n} particles, "
@@ -1670,6 +1823,18 @@ def phase_vec_backward():
                 sc = scene.replace(primitives=(PrimitiveSpec(shape=shape, friction=0.9, **kw),))
                 grid_op_case(shape, sc, B, grid4, ct3, 400 + 10 * i,
                              POSE_TOL.get(shape, BWD_TOL["grid_op_bwd"]), True)
+            sc = mixed_scene(scene)
+            grid_op_case(f"mixed: {', '.join(MIXED_SHAPES)}, B={B}", sc, B, grid4, ct3, 470,
+                         pose_tols(sc), True)
+        mass_shares(f"Move-v1 grids, B={B}", grid4)
+        if first:  # a batch without mass: zeros, no NaN
+            pf, pf1 = batch_poses(B, len(scene.primitives), 500, center)
+            dg4, dposes = cuda_gridop.grid_op_bwd(
+                scene, torch.zeros_like(grid4), cuda_gridop.pack_poses(pf, pf1).contiguous(),
+                tensor(np.full(B, 666.0)), ct3)
+            if not (bool((dg4 == 0).all()) and bool((dposes == 0).all())):
+                raise AssertionError("grid_op_bwd_batched without mass: non-zero cotangents")
+            log(f"  grid_op_bwd_batched[no mass, B={B}] d grid4 and d poses all 0")
         move = grid_op_case(f"Move-v1: 2 Spheres, B={B}", scene, B, grid4, ct3, 500,
                             BWD_TOL["grid_op_bwd"], first)
         rec("grid_op_bwd_batched", *move)
@@ -2028,27 +2193,32 @@ def main():
     for kernel, (count, mufu, call) in sass_counts(path).items():
         log(f"  sass {kernel}: {count} instructions, {mufu} MUFU, {call} CALL")
 
-    results = phase_kernels()
-    phase_reference()
-    launches, _ = phase_slice()
-    results.update(phase_backward())
-    results.update(phase_stress_cases())
-    phase_transfer_cases()
+    def timed(phase):
+        log(f"[{time.perf_counter() - t0:.1f} s since the build began] {phase.__name__}")
+        return phase()
+
+    results = timed(phase_kernels)
+    timed(phase_reference)
+    launches, _ = timed(phase_slice)
+    results.update(timed(phase_backward))
+    results.update(timed(phase_stress_cases))
+    timed(phase_transfer_cases)
     # the backward kernels' counts come from the trajectory gradient's run
-    launches.update({k: v for k, v in phase_gradient().items() if k.endswith("_bwd")})
-    phase_solve()
-    results.update(phase_voxelize())
-    phase_render_reference()
-    render = phase_render()
+    launches.update({k: v for k, v in timed(phase_gradient).items() if k.endswith("_bwd")})
+    timed(phase_solve)
+    results.update(timed(phase_voxelize))
+    timed(phase_render_reference)
+    render = timed(phase_render)
     launches["voxelize"] = render["voxelize_launches"]
-    results.update(phase_vec_kernels())
-    vec = phase_vec()
+    results.update(timed(phase_vec_kernels))
+    vec = timed(phase_vec)
     launches.update({k: vec["launches"][k] for k in BATCHED_FWD})
-    vgrad = phase_vec_gradient()
-    results.update(phase_vec_backward())
+    vgrad = timed(phase_vec_gradient)
+    results.update(timed(phase_vec_backward))
     launches.update({k: vgrad["launches"][k] for k in BATCHED_BWD})
     # after the slice: an active profiler slows every later launch
-    phase_transfer_times()
+    timed(phase_transfer_times)
+    log(f"[{time.perf_counter() - t0:.1f} s since the build began] phase device times")
     log("phase device times (ms per call: torch.profiler, or CUDA events where every profile "
         "lost events)")
     _, empty = cold_time(lambda: None)
@@ -2058,11 +2228,12 @@ def main():
     # the kernels' profiles first: losses began with the plain versions'
     # profiles of tens of thousands of events (PERF.md)
     for which, field in ((0, "ms"), (1, "plain_ms")):
+        reps = PLAIN_REPS if which else KERNEL_REPS
         for k, r in results.items():
             fn, how = calls[k][which], "profiler"
-            ms = device_time(fn)
+            ms = device_time(fn, reps)
             if ms is None:
-                ms, how = cold_time(fn)[1] - empty, "CUDA events, L2-warm"
+                ms, how = cold_time(fn, reps)[1] - empty, "CUDA events, L2-warm"
             r[field] = ms
             log(f"  {k:28s} {field:8s} {ms:.4f} ({how})")
             if which == 0 and k in SPREAD_KEYS:  # readings that spread across runs
@@ -2115,6 +2286,7 @@ def main():
     if not (per_substep[VEC_BATCHES[0]] > 0 and ratio <= VEC_LAUNCH_RATIO):
         raise AssertionError("the batched gradient's launches grow with B")
 
+    log(f"[{time.perf_counter() - t0:.1f} s since the build began] done")
     kernels = [dict(name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
                     launches=launches[k], **results[k]) for k in REPLACES]
     print(json.dumps({"kernels": kernels}), flush=True)

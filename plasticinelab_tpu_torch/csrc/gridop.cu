@@ -1,6 +1,6 @@
-// Grid update kernels, one thread per cell of the full G^3 grid: mass
-// normalise, gravity, per-primitive SDF contact at poses f and f+1, walls,
-// ground friction, velocity clamp.
+// Grid update kernels over the full G^3 grid of each env: mass normalise,
+// gravity, per-primitive SDF contact at poses f and f+1, walls, ground
+// friction, velocity clamp.
 //
 // grid_op_kernel: port of the forward of plasticinelab_tpu/engine/
 //   pallas_gridop.py (_fwd_kernel, K8), which runs plasticinelab_tpu/engine/
@@ -9,31 +9,32 @@
 //   operations follows grid_op_core, including the 1e-30 ground-friction
 //   tie-breakers (normal floats in f32). The inverse rotation uses the
 //   renormalised conjugate quaternion, as primitives.inv_trans does.
-// grid_op_bwd_kernel + grid_op_pose_reduce_kernel: port of pallas_gridop.py
-//   _bwd_kernel (K8 backward, :97), which runs the reference's autodiff
-//   (vjp) of grid_op_core inside the kernel. Hopper has no in-kernel
-//   autodiff, so the adjoint is written by hand: each thread recomputes its
-//   cell's forward and runs it backwards. The Jacobians of the 7 shapes' local SDF and normal with
-//   respect to the local point (and the Chopsticks gap) come from the same
-//   templated shape code instantiated on a forward-mode dual number with 4
-//   tangents; the quaternion and position chain rule is written out. The
-//   pose cotangents are reduced deterministically: per-block sums (blocks
-//   with no contact write zeros without reducing), then one block per
-//   (primitive, env) sums that env's block partials in a fixed order.
+// grid_op_bwd_kernel: port of pallas_gridop.py _bwd_kernel (K8 backward,
+//   :97), which runs the reference's autodiff (vjp) of grid_op_core inside
+//   the kernel. Hopper has no in-kernel autodiff, so the adjoint is written
+//   by hand: each cell recomputes its forward and runs it backwards. The
+//   Jacobians of the 7 shapes' local SDF and normal with respect to the
+//   local point (and the Chopsticks gap) come from the same templated shape
+//   code instantiated on a forward-mode dual number with 4 tangents; the
+//   quaternion and position chain rule is written out. The pose cotangents
+//   are summed in the same launch, in an order fixed by the grid alone.
 //
 // grid4 (G^3, 4) [mom x, y, z, mass]; poses (k, 16) rows [pos_f 3, rot_f 4,
-// gap_f, pos_f1 3, rot_f1 4, gap_f1]; out (G^3, 3). The pass reads 16 B and
-// writes 12 B per cell, a few MB that stay in L2; the cost is the SDF,
-// normal and contact arithmetic per primitive, in a thin shell around each.
-//
-// Both directions take B envs, grid4 (B, G^3, 4), each env with its own
-// poses row block (B, k, 16) and its own softness from a (B,) device tensor;
-// one env is B = 1. The forward runs one thread per (env, cell) of the flat
-// grids. The backward launches a 2-D grid (blocks of one env's cells, env),
-// so no block holds cells of two envs and each env's pose cotangents are
-// summed in the order a B = 1 launch sums them. They also replace the
+// gap_f, pos_f1 3, rot_f1 4, gap_f1]; out (G^3, 3). Both directions take B
+// envs, grid4 (B, G^3, 4), each env with its own poses row block (B, k, 16)
+// and its own softness from a (B,) device tensor; one env is B = 1. Both
+// launch a 2-D grid (blocks of one env's cells, env). They also replace the
 // batched grids of the same TPU kernels (pallas_gridop.py:205
 // grid_op_fns_batched, K8-fwd-b :234 and K8-bwd-b :247).
+//
+// What bounds them on the H100: bytes. The forward reads 16 B and writes
+// 12 B per cell, the backward reads 16 B (and 12 B of cotangent where the
+// cell has mass) and writes 16 B; the outputs stay dense. The arithmetic
+// (SDF, normal, contact response and its adjoint with dual-number
+// Jacobians) runs only in the cells with mass, ~1% of Move-v1's grid, and
+// within them only where a primitive touches. So a warp without mass loads
+// its 32 rows as 16-byte loads, votes, and writes zeros as 16-byte stores;
+// the heavy path and its registers are paid where it runs.
 #include "common.cuh"
 
 #define PLB_MAX_PRIMS 8
@@ -94,10 +95,13 @@ __device__ __forceinline__ Dual operator*(const Dual& a, const Dual& b) {
   return r;
 }
 __device__ __forceinline__ Dual operator/(const Dual& a, const Dual& b) {
+  // the value an IEEE division, the tangents through one reciprocal: each
+  // IEEE division is a checked branch that serialises the chain (PERF.md)
   Dual r;
   r.v = a.v / b.v;
+  const float inv = 1.0f / b.v;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) r.d[i] = (a.d[i] - r.v * b.d[i]) / b.v;
+  for (int i = 0; i < 4; ++i) r.d[i] = (a.d[i] - r.v * b.d[i]) * inv;
   return r;
 }
 __device__ __forceinline__ float val(float a) { return a; }
@@ -287,7 +291,7 @@ __device__ __forceinline__ void chopsticks_parts(const Prim& P, const Vec3<T>& p
 }
 
 template <class T>
-__device__ T local_sdf(const Prim& P, const Vec3<T>& p, const T& gap) {
+__device__ __forceinline__ T local_sdf(const Prim& P, const Vec3<T>& p, const T& gap) {
   switch (P.shape) {
     case kCapsule:
       return capsule_sdf(P, p);
@@ -306,7 +310,7 @@ __device__ T local_sdf(const Prim& P, const Vec3<T>& p, const T& gap) {
 }
 
 template <class T>
-__device__ Vec3<T> local_normal(const Prim& P, const Vec3<T>& p, const T& gap) {
+__device__ __forceinline__ Vec3<T> local_normal(const Prim& P, const Vec3<T>& p, const T& gap) {
   switch (P.shape) {
     case kCapsule:
       return capsule_normal(P, p);
@@ -324,70 +328,111 @@ __device__ Vec3<T> local_normal(const Prim& P, const Vec3<T>& p, const T& gap) {
       return box_normal(P, p);
   }
 }
-
 // ---------------------------------------------------------------------------
 // contact response (primitives.collide, reference primive_base.py:91-115)
 // ---------------------------------------------------------------------------
+// One primitive's poses at f and f+1, read from the block's shared copy.
 struct PrimPose {
   const float *pos_f, *rot_f, *pos_f1, *rot_f1;
+  const float* conj_f;  // conj(rot_f) / |rot_f|
   float gap_f;
-  float conj_f[4];  // conj(rot_f) / |rot_f|
 };
 
-__device__ __forceinline__ PrimPose prim_pose(const float* pose) {
-  PrimPose pp;
-  pp.pos_f = pose;
-  pp.rot_f = pose + 3;
-  pp.gap_f = pose[7];
-  pp.pos_f1 = pose + 8;
-  pp.rot_f1 = pose + 11;
-  conj_normalized(pp.rot_f, pp.conj_f);
-  return pp;
+// An env's primitives staged in shared memory: parameters, poses, and each
+// rotation's renormalised conjugate, computed once per block, not per cell.
+struct PoseSmem {
+  Prim prim[PLB_MAX_PRIMS];
+  float pose[PLB_MAX_PRIMS][16];
+  float conj[PLB_MAX_PRIMS][4];
+};
+
+__device__ __forceinline__ Prim prim_of(const PrimTable& table, int i) {
+  const float* pr = table.param[i];
+  return {table.shape[i], pr[0], pr[1], pr[2], pr[3], pr[4], pr[5], pr[6], pr[7], pr[8]};
+}
+
+// Thread i < k stages primitive i; the caller's barrier publishes it.
+__device__ __forceinline__ void stage_pose(const PrimTable& table, const float* __restrict__ poses,
+                                           PoseSmem& s) {
+  const int i = threadIdx.x;
+  if (i >= table.k) return;
+  s.prim[i] = prim_of(table, i);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) s.pose[i][j] = poses[i * 16 + j];
+  conj_normalized(s.pose[i] + 3, s.conj[i]);
+}
+
+__device__ __forceinline__ PrimPose prim_pose(const PoseSmem& s, int i) {
+  return {s.pose[i], s.pose[i] + 3, s.pose[i] + 8, s.pose[i] + 11, s.conj[i], s.pose[i][7]};
 }
 
 // What the contact response of one cell needs from the geometry: the
-// distance and, where the contact condition holds, the normal; with DERIV
-// also their Jacobians with respect to the local point and the gap.
+// distance and, where the contact condition holds, the normal; in the
+// backward also their Jacobians with respect to the local point and the gap.
 struct Contact {
-  V3 d0;           // gp - pos_f
-  V3 local;        // conj_f applied to d0 (the collider's rest frame)
-  float l;         // sphere: |d0|
-  float dist;      // signed distance
+  V3 d0;            // gp - pos_f
+  V3 local;         // conj_f applied to d0 (the collider's rest frame)
+  float l;          // sphere: |d0|
+  float dist;       // signed distance
   float influence;  // min(exp(-dist softness), 1)
-  V3 nl;           // normal, local frame (non-spheres)
-  V3 D;            // normal, world frame
-  float sd[4];     // d dist / d (local x, y, z, gap)  [DERIV]
-  float J[3][4];   // d nl_i / d (local x, y, z, gap)  [DERIV]
+  V3 nl;            // normal, local frame (non-spheres)
+  V3 D;             // normal, world frame
+  float sd[4];      // d dist / d (local x, y, z, gap)  [backward]
+  float J[3][4];    // d nl_i / d (local x, y, z, gap)  [backward]
 };
 
-template <bool DERIV>
-__device__ __forceinline__ bool contact_geometry(const Prim& P, const PrimPose& pp, V3 gp,
-                                                 float softness, Contact& c) {
+// SPHERES: the kernels of a scene whose primitives are all spheres (Move-v1,
+// TripleMove-v1), compiled without the other shapes' code: fewer registers
+// and a third of the instructions, measured faster than the all-shapes
+// kernels on such scenes (PERF.md).
+template <bool SPHERES>
+__device__ __forceinline__ bool is_sphere(const Prim& P) {
+  return SPHERES || P.shape == kSphere;
+}
+
+template <bool SPHERES>
+__device__ __forceinline__ void contact_frame(const Prim& P, const PrimPose& pp, V3 gp, Contact& c) {
   c.d0 = {gp.x - pp.pos_f[0], gp.y - pp.pos_f[1], gp.z - pp.pos_f[2]};
   c.local = qrot(pp.conj_f, c.d0);
-  const bool sphere = P.shape == kSphere;
-  Vec3<Dual> p;
-  Dual gap;
-  if (sphere) {
-    c.l = len3(c.d0.x, c.d0.y, c.d0.z);
-    c.dist = c.l - P.radius;
-  } else if (DERIV) {
-    p = {seed(c.local.x, 0), seed(c.local.y, 1), seed(c.local.z, 2)};
-    gap = seed(pp.gap_f, 3);
-    const Dual sdf = local_sdf(P, p, gap);
-    c.dist = sdf.v;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c.sd[j] = sdf.d[j];
-  } else {
-    c.dist = local_sdf(P, c.local, pp.gap_f);
-  }
+  if (is_sphere<SPHERES>(P)) c.l = len3(c.d0.x, c.d0.y, c.d0.z);
+}
+
+// The float SDF and the contact condition; the normal only where it holds.
+template <bool SPHERES>
+__device__ __forceinline__ bool contact_geometry(const Prim& P, const PrimPose& pp, V3 gp,
+                                                 float softness, Contact& c) {
+  contact_frame<SPHERES>(P, pp, gp, c);
+  const bool sphere = is_sphere<SPHERES>(P);
+  c.dist = sphere ? c.l - P.radius : local_sdf(P, c.local, pp.gap_f);
   c.influence = jmin(expf(-c.dist * softness), 1.0f);
   if (!((softness > 0.0f && c.influence > 0.1f) || c.dist <= 0.0f)) return false;
   if (sphere) {
     c.D = {c.d0.x / c.l, c.d0.y / c.l, c.d0.z / c.l};
     return true;
   }
-  if (DERIV) {
+  if (SPHERES) return true;
+  c.nl = local_normal(P, c.local, pp.gap_f);
+  c.D = qrot(pp.rot_f, c.nl);
+  return true;
+}
+
+// The backward's geometry of a cell where the contact condition holds (the
+// forward pass tested it on the float SDF): distance, normal and, for the
+// non-spheres, their Jacobians from the dual-number SDF and normal.
+template <bool SPHERES>
+__device__ __forceinline__ void contact_jacobians(const Prim& P, const PrimPose& pp, V3 gp,
+                                                  float softness, Contact& c) {
+  contact_frame<SPHERES>(P, pp, gp, c);
+  if (is_sphere<SPHERES>(P)) {
+    c.dist = c.l - P.radius;
+    c.D = {c.d0.x / c.l, c.d0.y / c.l, c.d0.z / c.l};
+  } else if (!SPHERES) {
+    const Vec3<Dual> p = {seed(c.local.x, 0), seed(c.local.y, 1), seed(c.local.z, 2)};
+    const Dual gap = seed(pp.gap_f, 3);
+    const Dual sdf = local_sdf(P, p, gap);
+    c.dist = sdf.v;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c.sd[j] = sdf.d[j];
     const Vec3<Dual> n = local_normal(P, p, gap);
     c.nl = {n.x.v, n.y.v, n.z.v};
 #pragma unroll
@@ -396,11 +441,9 @@ __device__ __forceinline__ bool contact_geometry(const Prim& P, const PrimPose& 
       c.J[1][j] = n.y.d[j];
       c.J[2][j] = n.z.d[j];
     }
-  } else {
-    c.nl = local_normal(P, c.local, pp.gap_f);
+    c.D = qrot(pp.rot_f, c.nl);
   }
-  c.D = qrot(pp.rot_f, c.nl);
-  return true;
+  c.influence = jmin(expf(-c.dist * softness), 1.0f);
 }
 
 // Intermediates of one contact response.
@@ -438,20 +481,25 @@ __device__ __forceinline__ V3 response_v(const Response& r) {
           r.cv.z + r.iv.z * keep + r.ts.z * in};
 }
 
-// forward: v is left as it is where the contact condition does not hold
-__device__ __forceinline__ void collide(const Prim& P, const PrimPose& pp, float softness,
+// forward: v is left as it is where the contact condition does not hold;
+// true where it holds
+template <bool SPHERES>
+__device__ __forceinline__ bool collide(const Prim& P, const PrimPose& pp, float softness,
                                         float inv_dt, V3 gp, V3& v) {
   Contact c;
-  if (contact_geometry<false>(P, pp, gp, softness, c)) v = response_v(respond(P, pp, c, inv_dt, gp, v));
+  if (!contact_geometry<SPHERES>(P, pp, gp, softness, c)) return false;
+  v = response_v(respond(P, pp, c, inv_dt, gp, v));
+  return true;
 }
 
-// backward of collide given the output's cotangent g (in/out: the input
-// v's cotangent); adds the cell's pose cotangents to pg. False where the
-// contact condition does not hold (then nothing changes).
-__device__ bool collide_bwd(const Prim& P, const PrimPose& pp, float softness, float inv_dt, V3 gp,
-                            V3 v, V3& g, float (&pg)[kPG]) {
+// backward of collide where the contact condition holds, given the output's
+// cotangent g (in/out: the input v's cotangent); adds the cell's pose
+// cotangents to pg
+template <bool SPHERES>
+__device__ __forceinline__ void collide_bwd(const Prim& P, const PrimPose& pp, float softness,
+                                            float inv_dt, V3 gp, V3 v, V3& g, float (&pg)[kPG]) {
   Contact c;
-  if (!contact_geometry<true>(P, pp, gp, softness, c)) return false;
+  contact_jacobians<SPHERES>(P, pp, gp, softness, c);
   const Response r = respond(P, pp, c, inv_dt, gp, v);
   const V3 D = c.D;
   const float influence = c.influence, keep = 1.0f - influence;
@@ -464,18 +512,21 @@ __device__ bool collide_bwd(const Prim& P, const PrimPose& pp, float softness, f
   V3 g_t = {g_ts.x * r.s_eff, g_ts.y * r.s_eff, g_ts.z * r.s_eff};
   float g_nc = 0.0f;
   if (r.flag) {
-    // ts = t * max(num, 0) / tnorm, num = tnorm + nc * friction
+    // ts = t * max(num, 0) / tnorm, num = tnorm + nc * friction; the adjoint
+    // multiplies by one reciprocal of tnorm (PERF.md)
+    const float inv_tn = 1.0f / r.tnorm;
     const float g_seff = g_ts.x * r.t.x + g_ts.y * r.t.y + g_ts.z * r.t.z;
     const float numc = jmax(0.0f, r.num);
-    float g_tnorm = -g_seff * numc / (r.tnorm * r.tnorm);
+    float g_tnorm = -g_seff * numc * inv_tn * inv_tn;
     if (r.num >= 0.0f) {
-      const float g_num = g_seff / r.tnorm;
+      const float g_num = g_seff * inv_tn;
       g_tnorm += g_num;
       g_nc += g_num * P.friction;
     }
-    g_t.x += g_tnorm * r.t.x / r.tnorm;
-    g_t.y += g_tnorm * r.t.y / r.tnorm;
-    g_t.z += g_tnorm * r.t.z / r.tnorm;
+    const float gi = g_tnorm * inv_tn;
+    g_t.x += gi * r.t.x;
+    g_t.y += gi * r.t.y;
+    g_t.z += gi * r.t.z;
   }
   // t = iv - min(nc, 0) D
   g_iv = {g_iv.x + g_t.x, g_iv.y + g_t.y, g_iv.z + g_t.z};
@@ -498,14 +549,14 @@ __device__ bool collide_bwd(const Prim& P, const PrimPose& pp, float softness, f
   pg[kPosF1 + 2] += g_np.z;
   V3 g_local = qrot_bwd(pp.rot_f1, c.local, g_np, pg + kRotF1);
   V3 g_d0 = {0.0f, 0.0f, 0.0f};
-  if (P.shape == kSphere) {
-    // dist = |d0| - radius, D = d0 / |d0|
-    const float l = c.l, dg = c.d0.x * g_D.x + c.d0.y * g_D.y + c.d0.z * g_D.z;
-    const float l3 = l * l * l;
-    g_d0 = {g_dist * c.d0.x / l + g_D.x / l - c.d0.x * dg / l3,
-            g_dist * c.d0.y / l + g_D.y / l - c.d0.y * dg / l3,
-            g_dist * c.d0.z / l + g_D.z / l - c.d0.z * dg / l3};
-  } else {
+  if (is_sphere<SPHERES>(P)) {
+    // dist = |d0| - radius, D = d0 / |d0|: g_d0 = (g_dist d0 + g_D - D (D . g_D)) / |d0|
+    const float inv_l = 1.0f / c.l;
+    const float dg = (c.d0.x * g_D.x + c.d0.y * g_D.y + c.d0.z * g_D.z) * inv_l * inv_l;
+    g_d0 = {(g_dist * c.d0.x + g_D.x - c.d0.x * dg) * inv_l,
+            (g_dist * c.d0.y + g_D.y - c.d0.y * dg) * inv_l,
+            (g_dist * c.d0.z + g_D.z - c.d0.z * dg) * inv_l};
+  } else if (!SPHERES) {
     // D = qrot(rot_f, nl(local, gap)), dist = sdf(local, gap)
     const V3 g_nl = qrot_bwd(pp.rot_f, c.nl, g_D, pg + kRotF);
     float gl[4];
@@ -521,12 +572,6 @@ __device__ bool collide_bwd(const Prim& P, const PrimPose& pp, float softness, f
   pg[kPosF + 0] -= g_d0.x;
   pg[kPosF + 1] -= g_d0.y;
   pg[kPosF + 2] -= g_d0.z;
-  return true;
-}
-
-__device__ __forceinline__ Prim prim_of(const PrimTable& table, int i) {
-  const float* pr = table.param[i];
-  return {table.shape[i], pr[0], pr[1], pr[2], pr[3], pr[4], pr[5], pr[6], pr[7], pr[8]};
 }
 
 struct CellCtx {
@@ -535,12 +580,18 @@ struct CellCtx {
   V3 gp;
 };
 
-__device__ __forceinline__ CellCtx cell_ctx(long long cell, int G, float dx) {
-  const long long GG = G;
+__device__ __forceinline__ CellCtx cell_ctx(int cell, int G, float dx) {
   CellCtx x;
-  x.c[0] = static_cast<int>(cell / (GG * GG));
-  x.c[1] = static_cast<int>((cell / GG) % GG);
-  x.c[2] = static_cast<int>(cell % GG);
+  if ((G & (G - 1)) == 0) {  // shifts and masks, not run-time divisions
+    const int s = __ffs(G) - 1;
+    x.c[0] = cell >> (2 * s);
+    x.c[1] = (cell >> s) & (G - 1);
+    x.c[2] = cell & (G - 1);
+  } else {
+    x.c[0] = cell / (G * G);
+    x.c[1] = (cell / G) % G;
+    x.c[2] = cell % G;
+  }
 #pragma unroll
   for (int d = 0; d < 3; ++d) x.cf[d] = static_cast<float>(x.c[d]);
   x.gp = {x.cf[0] * dx, x.cf[1] * dx, x.cf[2] * dx};
@@ -620,189 +671,228 @@ struct GridConsts {
   float dx, dt, g30[3], ground_friction, vmax;
 };
 
-// idx runs over (env, cell) of B envs' grids; grid4 and out are indexed by
-// idx itself, since the envs' grids are contiguous.
-__global__ void grid_op_kernel(const float* __restrict__ grid4, const float* __restrict__ poses,
-                               const float* __restrict__ softness, float* __restrict__ out,
-                               PrimTable table, GridConsts k, int B) {
-  const long long GG = k.G;
-  const long long cells = GG * GG * GG;
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= cells * B) return;
-  const long long env = idx / cells;
-  const long long cell = idx - env * cells;
-  const float m = grid4[idx * 4 + 3];
-  if (!(m > 1e-12f)) {
-    // cells with no mass keep zero velocity
-    out[idx * 3 + 0] = 0.0f;
-    out[idx * 3 + 1] = 0.0f;
-    out[idx * 3 + 2] = 0.0f;
-    return;
-  }
+// A cell's velocity after gravity, every primitive's contact, the walls and
+// the clamp (grid_op_core), from its grid4 row of non-zero mass.
+template <bool SPHERES>
+__device__ __forceinline__ void cell_fwd(float4 row, int cell, const PoseSmem& ps, int kk,
+                                         const GridConsts& k, float softness, float (&v)[3]) {
   const CellCtx x = cell_ctx(cell, k.G, k.dx);
-  const float inv_m = 1.0f / m;
-  V3 vv = {grid4[idx * 4 + 0] * inv_m + k.g30[0], grid4[idx * 4 + 1] * inv_m + k.g30[1],
-           grid4[idx * 4 + 2] * inv_m + k.g30[2]};
+  const float inv_m = 1.0f / row.w;
+  V3 vv = {row.x * inv_m + k.g30[0], row.y * inv_m + k.g30[1], row.z * inv_m + k.g30[2]};
   const float inv_dt = 1.0f / k.dt;
-  const float soft = softness[env];
-  const float* env_poses = poses + env * table.k * 16;
-  for (int i = 0; i < table.k; ++i)
-    collide(prim_of(table, i), prim_pose(env_poses + i * 16), soft, inv_dt, x.gp, vv);
-  float v[3] = {vv.x, vv.y, vv.z};
+  for (int i = 0; i < kk; ++i)
+    collide<SPHERES>(ps.prim[i], prim_pose(ps, i), softness, inv_dt, x.gp, vv);
+  v[0] = vv.x;
+  v[1] = vv.y;
+  v[2] = vv.z;
 #pragma unroll
   for (int d = 0; d < 3; ++d) wall_step(d, x, k.G, k.ground_friction, v);
   if (k.vmax > 0.0f) {
 #pragma unroll
     for (int d = 0; d < 3; ++d) v[d] = jmin(jmax(v[d], -k.vmax), k.vmax);
   }
-  out[idx * 3 + 0] = v[0];
-  out[idx * 3 + 1] = v[1];
-  out[idx * 3 + 2] = v[2];
 }
 
-// The adjoint of one cell: recomputes its forward, keeping the velocity
-// entering each primitive and each wall step, then runs it backwards and
-// writes d grid4. sink(i, hit, pg) takes the cell's pose cotangents of
-// primitive i, last primitive first; every thread calls it table.k times,
-// whether or not its cell is in the grid, has mass, or touches primitive i.
-template <class Sink>
-__device__ __forceinline__ void cell_bwd(const float* __restrict__ grid4,
-                                         const float* __restrict__ poses,
-                                         const float* __restrict__ ct, float* __restrict__ dgrid4,
-                                         const PrimTable& table, const GridConsts& k,
-                                         float softness, long long cell, Sink& sink) {
-  const long long GG = k.G;
-  const bool in_grid = cell < GG * GG * GG;
-  const float m = in_grid ? grid4[cell * 4 + 3] : 0.0f;
-  const bool active = m > 1e-12f;
-  const CellCtx x = cell_ctx(in_grid ? cell : 0, k.G, k.dx);
-  const float inv_m = active ? 1.0f / m : 0.0f;
-  const float inv_dt = 1.0f / k.dt;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = plb::kThreads / 32;
 
-  float vin[PLB_MAX_PRIMS][3];
-  float g[3] = {0.0f, 0.0f, 0.0f};
-  if (active) {
-    V3 vv = {grid4[cell * 4 + 0] * inv_m + k.g30[0], grid4[cell * 4 + 1] * inv_m + k.g30[1],
-             grid4[cell * 4 + 2] * inv_m + k.g30[2]};
-    for (int i = 0; i < table.k; ++i) {
-      vin[i][0] = vv.x;
-      vin[i][1] = vv.y;
-      vin[i][2] = vv.z;
-      collide(prim_of(table, i), prim_pose(poses + i * 16), softness, inv_dt, x.gp, vv);
-    }
-    float vwall[3][3];
-    float v[3] = {vv.x, vv.y, vv.z};
+// Launch shapes (PERF.md): each block walks TILES tiles of kThreads
+// consecutive cells of one env, every tile's grid4 rows loaded (before the
+// block's pose staging) before the first is used; min blocks per SM for the
+// register cap. The forward takes kFwdTilesWide tiles a block from
+// kFwdWideFrom envs (fewer, fuller blocks once B envs fill the card).
+constexpr int kFwdTiles = 1;
+constexpr int kFwdTilesWide = 4;
+constexpr int kFwdWideFrom = 4;
+constexpr int kFwdMinBlocks = 4;
+constexpr int kBwdTiles = 8;
+constexpr int kBwdMinBlocks = 2;
+// bit words of one env's block flags that the last block stages (G <= 406
+// at kBwdTiles = 8)
+constexpr int kMaxFlagWords = 1024;
+
+// row[t] of a register array at a run-time t, without local memory
+template <int N>
+__device__ __forceinline__ float4 pick(const float4 (&row)[N], int t) {
+  float4 r = row[0];
 #pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      vwall[d][0] = v[0];
-      vwall[d][1] = v[1];
-      vwall[d][2] = v[2];
-      wall_step(d, x, k.G, k.ground_friction, v);
-    }
-    // the clamp passes the cotangent inside [-vmax, vmax]
+  for (int u = 1; u < N; ++u)
+    if (t == u) r = row[u];
+  return r;
+}
+
+// grid (ceil(G^3 / (TILES kThreads)), B): block (x, env) holds cells of
+// env alone. A warp without mass writes its 32 zero rows as 16-byte stores;
+// a warp with mass stages its rows in shared memory and writes them so too
+// (a 12-byte stride per thread multiplies the L2's write transactions,
+// common.cuh).
+template <int TILES, bool SPHERES>
+__global__ void __launch_bounds__(plb::kThreads, kFwdMinBlocks)
+    grid_op_kernel(const float* __restrict__ grid4, const float* __restrict__ poses,
+                   const float* __restrict__ softness, float* __restrict__ out, PrimTable table,
+                   GridConsts k) {
+  __shared__ PoseSmem ps;
+  __shared__ __align__(16) float slab[kWarps][32 * 3];
+  const int cells = k.G * k.G * k.G;
+  const long long env = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float4* g4 = reinterpret_cast<const float4*>(grid4) + env * cells;
+  float* o = out + env * cells * 3;
+  const int first = blockIdx.x * (TILES * plb::kThreads) + threadIdx.x;
+  float4 row[TILES];
 #pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      g[d] = ct[cell * 3 + d];
-      if (k.vmax > 0.0f && !(v[d] >= -k.vmax && v[d] <= k.vmax)) g[d] = 0.0f;
-    }
-#pragma unroll
-    for (int d = 2; d >= 0; --d) wall_step_bwd(d, x, k.G, k.ground_friction, vwall[d], g);
+  for (int t = 0; t < TILES; ++t) {
+    const int cell = first + t * plb::kThreads;
+    row[t] = cell < cells ? __ldg(g4 + cell) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
-  for (int i = table.k - 1; i >= 0; --i) {
+  stage_pose(table, poses + env * table.k * 16, ps);
+  __syncthreads();
+  const float soft = softness[env];
+#pragma unroll 1
+  for (int t = 0; t < TILES; ++t) {
+    const int cell = first + t * plb::kThreads;
+    const int row0 = cell - lane;
+    const float4 rt = pick(row, t);
+    const bool active = cell < cells && rt.w > 1e-12f;
+    float v[3] = {0.0f, 0.0f, 0.0f};  // cells with no mass keep zero velocity
+    const bool any = __ballot_sync(kFull, active) != 0;
+    if (active) cell_fwd<SPHERES>(rt, cell, ps, table.k, k, soft, v);
+    float* dst = o + static_cast<long long>(row0) * 3;
+    if (row0 + 32 <= cells && (reinterpret_cast<unsigned long long>(dst) & 15) == 0) {
+      if (!any) {
+        if (lane < 24) reinterpret_cast<float4*>(dst)[lane] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        continue;
+      }
+#pragma unroll
+      for (int d = 0; d < 3; ++d) slab[warp][lane * 3 + d] = v[d];
+      __syncwarp();
+      if (lane < 24)
+        reinterpret_cast<float4*>(dst)[lane] = reinterpret_cast<const float4*>(slab[warp])[lane];
+      __syncwarp();
+    } else if (cell < cells) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) dst[lane * 3 + d] = v[d];
+    }
+  }
+}
+
+// The adjoint of one cell of non-zero mass, up to the primitive loop:
+// recomputes the cell's forward, noting which primitives it touches (the
+// contact condition depends on the cell and the poses, not on the
+// velocity), and runs the clamp and the walls backwards. The kernel then
+// runs each touching primitive backwards, last first, the velocity entering
+// it recomputed from v0 through the touching primitives before it: no
+// per-primitive array (one indexed at run time lives in local memory).
+struct CellAdjoint {
+  V3 v0;          // velocity after gravity
+  float g[3];     // cotangent of the velocity entering the primitive loop
+  unsigned hits;  // bit i: the contact condition holds for primitive i
+  CellCtx x;
+};
+
+template <bool SPHERES>
+__device__ __forceinline__ void cell_adjoint_walls(float4 row, int cell, const float* __restrict__ ct,
+                                                   const PoseSmem& ps, int kk, const GridConsts& k,
+                                                   float softness, CellAdjoint& a) {
+  float ctc[3];  // loaded first: their latency overlaps the forward recompute
+#pragma unroll
+  for (int d = 0; d < 3; ++d) ctc[d] = __ldg(ct + static_cast<long long>(cell) * 3 + d);
+  a.x = cell_ctx(cell, k.G, k.dx);
+  const float inv_m = 1.0f / row.w;
+  a.v0 = {row.x * inv_m + k.g30[0], row.y * inv_m + k.g30[1], row.z * inv_m + k.g30[2]};
+  const float inv_dt = 1.0f / k.dt;
+  V3 vv = a.v0;
+  a.hits = 0;
+  for (int i = 0; i < kk; ++i)
+    if (collide<SPHERES>(ps.prim[i], prim_pose(ps, i), softness, inv_dt, a.x.gp, vv))
+      a.hits |= 1u << i;
+  float vwall[3][3];
+  float v[3] = {vv.x, vv.y, vv.z};
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    vwall[d][0] = v[0];
+    vwall[d][1] = v[1];
+    vwall[d][2] = v[2];
+    wall_step(d, a.x, k.G, k.ground_friction, v);
+  }
+  // the clamp passes the cotangent inside [-vmax, vmax]
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    a.g[d] = ctc[d];
+    if (k.vmax > 0.0f && !(v[d] >= -k.vmax && v[d] <= k.vmax)) a.g[d] = 0.0f;
+  }
+#pragma unroll
+  for (int d = 2; d >= 0; --d) wall_step_bwd(d, a.x, k.G, k.ground_friction, vwall[d], a.g);
+}
+
+// The adjoint of a pass of a warp's cells with mass, one a lane (`active`):
+// each lane's d grid4 row; per primitive touched by some lane, the
+// lanes' pose cotangents are summed by a shuffle tree into lane 0, which
+// adds them to the warp's slot; `touched` where some lane touched one.
+struct WarpAdjoint {
+  float4 out;
+  bool touched;
+};
+
+template <bool SPHERES>
+__device__ __forceinline__ WarpAdjoint warp_adjoint(float4 row, int cell, bool active,
+                                                    const float* __restrict__ ct,
+                                                    const PoseSmem& ps, int kk, GridConsts k,
+                                                    float soft, float (*slot)[kPG]) {
+  WarpAdjoint r = {make_float4(0.0f, 0.0f, 0.0f, 0.0f), false};
+  const float inv_dt = 1.0f / k.dt;
+  CellAdjoint a;
+  a.hits = 0;
+  if (active) cell_adjoint_walls<SPHERES>(row, cell, ct, ps, kk, k, soft, a);
+  for (int i = kk - 1; i >= 0; --i) {
+    const bool hit = (a.hits >> i) & 1u;
+    if (__ballot_sync(kFull, hit) == 0) continue;
     float pg[kPG];
 #pragma unroll
     for (int j = 0; j < kPG; ++j) pg[j] = 0.0f;
-    bool hit = false;
-    if (active) {
-      V3 gv = {g[0], g[1], g[2]};
-      hit = collide_bwd(prim_of(table, i), prim_pose(poses + i * 16), softness, inv_dt, x.gp,
-                        V3{vin[i][0], vin[i][1], vin[i][2]}, gv, pg);
-      g[0] = gv.x;
-      g[1] = gv.y;
-      g[2] = gv.z;
+    if (hit) {
+      V3 vin = a.v0;
+      for (int j = 0; j < i; ++j)
+        if ((a.hits >> j) & 1u)
+          collide<SPHERES>(ps.prim[j], prim_pose(ps, j), soft, inv_dt, a.x.gp, vin);
+      V3 gv = {a.g[0], a.g[1], a.g[2]};
+      collide_bwd<SPHERES>(ps.prim[i], prim_pose(ps, i), soft, inv_dt, a.x.gp, vin, gv, pg);
+      a.g[0] = gv.x;
+      a.g[1] = gv.y;
+      a.g[2] = gv.z;
     }
-    sink(i, hit, pg);
-  }
-  if (!in_grid) return;
-  if (!active) {
+    // 19 independent trees, one level at a time; a sphere's rot_f and gap
+    // terms are zero
 #pragma unroll
-    for (int s = 0; s < 4; ++s) dgrid4[cell * 4 + s] = 0.0f;
-    return;
-  }
-  // v0_s = mom_s / m + gravity_s
-  float gm = 0.0f;
+    for (int off = 16; off > 0; off >>= 1)
 #pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    dgrid4[cell * 4 + s] = g[s] * inv_m;
-    gm -= g[s] * grid4[cell * 4 + s] * inv_m * inv_m;
-  }
-  dgrid4[cell * 4 + 3] = gm;
-}
-
-// Sum of kPG values over the block in a fixed order; thread j < kPG ends up
-// holding the block's sum of component j in sum_out.
-__device__ __forceinline__ void block_sum(const float (&x)[kPG], float (*smem)[kPG],
-                                          float& sum_out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+      for (int j = 0; j < kPG; ++j)
+        if (!(SPHERES && (j == kGapF || (j >= kRotF && j < kRotF + 4))))
+          pg[j] += __shfl_down_sync(kFull, pg[j], off);
+    if ((threadIdx.x & 31) == 0) {
 #pragma unroll
-  for (int j = 0; j < kPG; ++j) {
-    float s = x[j];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) smem[warp][j] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x < kPG) {
-    float s = 0.0f;
-    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) s += smem[w][threadIdx.x];
-    sum_out = s;
-  }
-  __syncthreads();
-}
-
-// Writes the block's sum of each primitive's pose cotangents to its row of
-// its env's partials (nblocks, k, kPG); a block where no cell touches the
-// primitive writes zeros without reducing.
-struct BlockSink {
-  float* partials;
-  float (*smem)[kPG];
-  int k;
-  __device__ __forceinline__ void operator()(int i, bool hit, const float (&pg)[kPG]) {
-    float* part = partials + (static_cast<long long>(blockIdx.x) * k + i) * kPG;
-    if (__syncthreads_or(hit)) {
-      float s = 0.0f;
-      block_sum(pg, smem, s);
-      if (threadIdx.x < kPG) part[threadIdx.x] = s;
-    } else if (threadIdx.x < kPG) {
-      part[threadIdx.x] = 0.0f;
+      for (int j = 0; j < kPG; ++j) slot[i][j] += pg[j];
     }
+    r.touched = true;
   }
-};
-
-// Grid (blocks_for(G^3), B): block (x, env) holds cells of env alone;
-// partials is (B, nblocks, k, kPG).
-__global__ void grid_op_bwd_kernel(const float* __restrict__ grid4,
-                                   const float* __restrict__ poses,
-                                   const float* __restrict__ softness,
-                                   const float* __restrict__ ct, float* __restrict__ dgrid4,
-                                   float* __restrict__ partials, PrimTable table, GridConsts k) {
-  __shared__ float smem[plb::kThreads / 32][kPG];
-  const long long GG = k.G;
-  const long long cells = GG * GG * GG;
-  const long long env = blockIdx.y;
-  BlockSink sink{partials + env * gridDim.x * table.k * kPG, smem, table.k};
-  const long long cell = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  cell_bwd(grid4 + env * cells * 4, poses + env * table.k * 16, ct + env * cells * 3,
-           dgrid4 + env * cells * 4, table, k, softness[env], cell, sink);
+  if (active) {
+    // v0_s = mom_s / m + gravity_s
+    const float inv_m = 1.0f / row.w;
+    r.out.x = a.g[0] * inv_m;
+    r.out.y = a.g[1] * inv_m;
+    r.out.z = a.g[2] * inv_m;
+    r.out.w = -(a.g[0] * row.x * inv_m * inv_m) - a.g[1] * row.y * inv_m * inv_m -
+              a.g[2] * row.z * inv_m * inv_m;
+  }
+  return r;
 }
 
 // One primitive's (16,) pose cotangent row from its summed kPG components:
 // the renormalised conjugate's cotangent g_c maps back to rot_f through
-// c = conj(q) / |q|: g_q = sign * (g_c - c (c . g_c)) / |q|.
-__device__ __forceinline__ void pose_row(const float* tot, const float* q, float* out) {
-  float c[4];
-  conj_normalized(q, c);
-  const float nq = sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]);
+// c = conj(q) / |q| (staged per block): g_q = sign * (g_c - c (c . g_c)) / |q|.
+__device__ __forceinline__ void pose_row(const float* tot, const float* q, const float* c,
+                                         float* out) {
+  const float inv_nq = 1.0f / sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]);
   const float* gc = tot + kConjF;
   const float cg = c[0] * gc[0] + c[1] * gc[1] + c[2] * gc[2] + c[3] * gc[3];
   const float sign[4] = {1.0f, -1.0f, -1.0f, -1.0f};
@@ -813,39 +903,169 @@ __device__ __forceinline__ void pose_row(const float* tot, const float* q, float
   }
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    out[3 + j] = tot[kRotF + j] + sign[j] * (gc[j] - c[j] * cg) / nq;
+    out[3 + j] = tot[kRotF + j] + sign[j] * (gc[j] - c[j] * cg) * inv_nq;
     out[11 + j] = tot[kRotF1 + j];
   }
   out[7] = tot[kGapF];
   out[15] = 0.0f;  // gap_f1 does not enter the grid update
 }
 
-// Grid (k, B), one block per (primitive, env): sums the env's per-block
-// partials in a fixed order and writes its row of the (B, k, 16) pose
-// cotangents.
-__global__ void grid_op_pose_reduce_kernel(const float* __restrict__ partials,
-                                           const float* __restrict__ poses,
-                                           float* __restrict__ dposes, int nblocks, int k) {
-  __shared__ float smem[plb::kThreads / 32][kPG];
-  __shared__ float tot[kPG];
-  const int i = blockIdx.x;
+// Grid (ceil(G^3 / (kBwdTiles kThreads)), B): block (x, env) holds cells
+// of env alone, a partition that depends on G alone, not on B or the card.
+// Each warp writes the d grid4 zeros of its cells without mass as 16-byte
+// stores, and packs its cells with mass from all its tiles, in cell order,
+// into passes of 32 lanes. Pose cotangents are summed where they arise: per
+// primitive, a pass with a cell in contact sums the cells' 19 components by
+// a shuffle tree into lane 0, which adds them to the warp's own slot in
+// shared memory (passes in order); after one barrier the block sums its
+// warps' slots in warp order into its row of `partials` (B, nblocks, k, kPG)
+// and sets its flag. The env's last block to finish (a counter per env) sums the flagged
+// rows in block order and writes the env's (k, 16) pose cotangents; which
+// block is last does not reach the result. done: per env, a flag per block
+// then the counter, zero between launches (the last block resets them).
+template <bool SPHERES>
+__global__ void __launch_bounds__(plb::kThreads, kBwdMinBlocks)
+    grid_op_bwd_kernel(const float* __restrict__ grid4, const float* __restrict__ poses,
+                       const float* __restrict__ softness, const float* __restrict__ ct,
+                       float* __restrict__ dgrid4, float* __restrict__ dposes,
+                       float* __restrict__ partials, unsigned int* __restrict__ done,
+                       PrimTable table, GridConsts k) {
+  __shared__ PoseSmem ps;
+  __shared__ float slot[kWarps][PLB_MAX_PRIMS][kPG];
+  __shared__ unsigned int flags[kMaxFlagWords];  // the last block's copy of the env's flags
+  __shared__ int cells_with_mass[kWarps][kBwdTiles * 32];
+  const int cells = k.G * k.G * k.G;
+  const int nblocks = gridDim.x, nwords = (nblocks + 31) / 32;
   const long long env = blockIdx.y;
-  partials += env * nblocks * k * kPG;
-  poses += env * k * 16;
-  dposes += env * k * 16;
-  float acc[kPG];
+  const int kk = table.k;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float4* g4 = reinterpret_cast<const float4*>(grid4) + env * cells;
+  float4* dg4 = reinterpret_cast<float4*>(dgrid4) + env * cells;
+  const float* cte = ct + env * cells * 3;
+  const int first = blockIdx.x * (kBwdTiles * plb::kThreads) + threadIdx.x;
+  float4 row[kBwdTiles];
 #pragma unroll
-  for (int j = 0; j < kPG; ++j) acc[j] = 0.0f;
-  for (int b = threadIdx.x; b < nblocks; b += blockDim.x) {
-    const float* part = partials + (static_cast<long long>(b) * k + i) * kPG;
-#pragma unroll
-    for (int j = 0; j < kPG; ++j) acc[j] += part[j];
+  for (int t = 0; t < kBwdTiles; ++t) {
+    const int cell = first + t * plb::kThreads;
+    row[t] = cell < cells ? __ldg(g4 + cell) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
-  float s = 0.0f;
-  block_sum(acc, smem, s);
-  if (threadIdx.x < kPG) tot[threadIdx.x] = s;
+  stage_pose(table, poses + env * kk * 16, ps);
+  for (int j = lane; j < kk * kPG; j += 32) slot[warp][j / kPG][j % kPG] = 0.0f;
   __syncthreads();
-  if (threadIdx.x == 0) pose_row(tot, poses + i * 16 + 3, dposes + i * 16);
+  const float soft = softness[env];
+  // a warp's cells with mass, tile by tile in cell order, packed into passes
+  // of 32 lanes; the other cells' d grid4 rows are zero
+  int n = 0;
+#pragma unroll
+  for (int t = 0; t < kBwdTiles; ++t) {
+    const int cell = first + t * plb::kThreads;
+    const bool active = cell < cells && row[t].w > 1e-12f;
+    const unsigned int bal = __ballot_sync(kFull, active);
+    if (active)
+      cells_with_mass[warp][n + __popc(bal & ((1u << lane) - 1u))] = cell;
+    else if (cell < cells)
+      dg4[cell] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    n += __popc(bal);
+  }
+  __syncwarp();
+  bool contributed = false;  // uniform over the warp
+  for (int p = 0; p < n; p += 32) {
+    const bool active = p + lane < n;
+    const int cell = active ? cells_with_mass[warp][p + lane] : 0;
+    const float4 rt = active ? __ldg(g4 + cell) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const WarpAdjoint w =
+        warp_adjoint<SPHERES>(rt, cell, active, cte, ps, kk, k, soft, slot[warp]);
+    contributed |= w.touched;
+    if (active) dg4[cell] = w.out;
+  }
+  if (kk == 0) return;
+  // the block's row of partials and its flag, then the env's counter
+  const bool any = __syncthreads_or(contributed);
+  float* part = partials + env * nblocks * kk * kPG;
+  unsigned int* flag = done + env * (nblocks + 1);  // nblocks flags, then the counter
+  if (any) {
+    if (threadIdx.x < kk * kPG) {
+      float s = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s += slot[w][threadIdx.x / kPG][threadIdx.x % kPG];
+      part[static_cast<long long>(blockIdx.x) * kk * kPG + threadIdx.x] = s;
+    }
+    if (threadIdx.x == 0) flag[blockIdx.x] = 1u;
+    __threadfence();
+    __syncthreads();
+  }
+  if (warp != 0) return;
+  unsigned int last = 0;
+  if (lane == 0) last = atomicAdd(flag + nblocks, 1u) == static_cast<unsigned int>(nblocks - 1);
+  if (!__shfl_sync(kFull, last, 0)) return;
+  // the env's last block, warp 0: the flags as bit words (eight words' loads
+  // in flight at a time), each flag and the counter reset to zero
+  __threadfence();
+  for (int w0 = 0; w0 < nwords; w0 += 8) {
+    unsigned int f[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int b = (w0 + u) * 32 + lane;
+      f[u] = b < nblocks ? __ldcg(flag + b) : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (f[u]) flag[(w0 + u) * 32 + lane] = 0u;
+      const unsigned int bits = __ballot_sync(kFull, f[u] != 0u);
+      if (lane == 0 && w0 + u < nwords) flags[w0 + u] = bits;
+    }
+  }
+  if (lane == 0) flag[nblocks] = 0u;
+  __syncwarp();
+  // lane l sums components l + 32 r, r < ceil(k kPG / 32), over the flagged
+  // blocks, eight rows' loads in flight at a time
+  constexpr int R = (PLB_MAX_PRIMS * kPG + 31) / 32;
+  float tot[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) tot[r] = 0.0f;
+  int w = 0;
+  unsigned int bits = 0u;
+  while (true) {
+    int b[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      while (bits == 0u && w < nwords) bits = flags[w++];
+      b[u] = bits ? (w - 1) * 32 + __ffs(bits) - 1 : -1;
+      bits &= bits - 1u;
+    }
+    if (b[0] < 0) break;
+    float val[8][R];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int c = lane + 32 * r;
+        val[u][r] = b[u] >= 0 && c < kk * kPG
+                        ? __ldcg(part + static_cast<long long>(b[u]) * kk * kPG + c)
+                        : 0.0f;
+      }
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (b[u] >= 0) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) tot[r] += val[u][r];
+      }
+  }
+  // stage the totals in this warp's slots, then one lane per primitive
+  // maps them to its (16,) row
+  float* sum = &slot[0][0][0];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (lane + 32 * r < kk * kPG) sum[lane + 32 * r] = tot[r];
+  __syncwarp();
+  if (lane < kk)
+    pose_row(sum + lane * kPG, ps.pose[lane] + 3, ps.conj[lane], dposes + (env * kk + lane) * 16);
+}
+
+bool all_spheres(const PrimTable& table) {
+  for (int i = 0; i < table.k; ++i)
+    if (table.shape[i] != kSphere) return false;
+  return true;
 }
 
 }  // namespace
@@ -859,35 +1079,56 @@ extern "C" int plb_grid_op(const float* grid4, const float* poses, const float* 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (table.k < 0 || table.k > PLB_MAX_PRIMS) return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = static_cast<long long>(G) * G * G * B;
+  const long long cells = static_cast<long long>(G) * G * G;
   const GridConsts k = {G, dx, dt, {g30x, g30y, g30z}, ground_friction, vmax};
-  if (total > 0) {
-    grid_op_kernel<<<plb::blocks_for(total), plb::kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(grid4, poses, softness, grid_v, table,
-                                                          k, B);
+  if (cells > 0 && B > 0) {
+    const bool wide = B >= kFwdWideFrom, spheres = all_spheres(table);
+    const dim3 grid(plb::blocks_for(cells, (wide ? kFwdTilesWide : kFwdTiles) * plb::kThreads), B);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (wide && spheres)
+      grid_op_kernel<kFwdTilesWide, true><<<grid, plb::kThreads, 0, s>>>(grid4, poses, softness,
+                                                                        grid_v, table, k);
+    else if (wide)
+      grid_op_kernel<kFwdTilesWide, false><<<grid, plb::kThreads, 0, s>>>(grid4, poses, softness,
+                                                                         grid_v, table, k);
+    else if (spheres)
+      grid_op_kernel<kFwdTiles, true><<<grid, plb::kThreads, 0, s>>>(grid4, poses, softness,
+                                                                    grid_v, table, k);
+    else
+      grid_op_kernel<kFwdTiles, false><<<grid, plb::kThreads, 0, s>>>(grid4, poses, softness,
+                                                                     grid_v, table, k);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// partials: scratch of B x blocks_for(G^3) x k x 19 floats
+// Per-env blocks of the backward: ceil(G^3 / kBwdCells).
+constexpr int kBwdCells = kBwdTiles * plb::kThreads;
+
+// partials: scratch of B x nblocks x k x 19 floats; done: B x (nblocks + 1)
+// ints, zero (nblocks = ceil(G^3 / kBwdCells); the kernel leaves them zero).
+// One stream: two launches that share them must not overlap.
 extern "C" int plb_grid_op_bwd(const float* grid4, const float* poses, const float* softness,
                                const float* ct, float* dgrid4, float* dposes, float* partials,
-                               PrimTable table, int B, int G, float dx, float dt, float g30x,
-                               float g30y, float g30z, float ground_friction, float vmax,
-                               int device, void* stream) {
+                               int* done, PrimTable table, int B, int G, float dx,
+                               float dt, float g30x, float g30y, float g30z,
+                               float ground_friction, float vmax, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (table.k < 0 || table.k > PLB_MAX_PRIMS) return static_cast<int>(cudaErrorInvalidValue);
   const long long cells = static_cast<long long>(G) * G * G;
   if (cells <= 0 || B <= 0) return static_cast<int>(cudaGetLastError());
+  const unsigned int nblocks = plb::blocks_for(cells, kBwdCells);
+  if ((nblocks + 31) / 32 > static_cast<unsigned int>(kMaxFlagWords))
+    return static_cast<int>(cudaErrorInvalidValue);
   const GridConsts k = {G, dx, dt, {g30x, g30y, g30z}, ground_friction, vmax};
-  const unsigned int nblocks = plb::blocks_for(cells);
+  const dim3 grid(nblocks, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  grid_op_bwd_kernel<<<dim3(nblocks, B), plb::kThreads, 0, s>>>(grid4, poses, softness, ct,
-                                                                dgrid4, partials, table, k);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || table.k == 0) return static_cast<int>(err);
-  grid_op_pose_reduce_kernel<<<dim3(table.k, B), plb::kThreads, 0, s>>>(
-      partials, poses, dposes, static_cast<int>(nblocks), table.k);
+  unsigned int* d = reinterpret_cast<unsigned int*>(done);
+  if (all_spheres(table))
+    grid_op_bwd_kernel<true><<<grid, plb::kThreads, 0, s>>>(grid4, poses, softness, ct, dgrid4,
+                                                           dposes, partials, d, table, k);
+  else
+    grid_op_bwd_kernel<false><<<grid, plb::kThreads, 0, s>>>(grid4, poses, softness, ct, dgrid4,
+                                                            dposes, partials, d, table, k);
   return static_cast<int>(cudaGetLastError());
 }

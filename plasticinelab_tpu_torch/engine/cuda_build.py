@@ -79,9 +79,9 @@ _SIGNATURES = {
     # x, grid_v, ct_v, ct_C, ct_x, order, gx, g_grid, n, B, G, inv_dx, dt,
     # x_hi, device, stream
     "plb_g2p_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _I, _P],
-    # grid4, poses, softness (B,), ct, dgrid4, dposes, partials, table, B, G,
-    # dx, dt, gravity xyz, ground_friction, vmax, device, stream
-    "plb_grid_op_bwd": [_P, _P, _P, _P, _P, _P, _P, PrimTable, _I, _I, _F, _F, _F, _F,
+    # grid4, poses, softness (B,), ct, dgrid4, dposes, partials, done, table,
+    # B, G, dx, dt, gravity xyz, ground_friction, vmax, device, stream
+    "plb_grid_op_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, PrimTable, _I, _I, _F, _F, _F, _F,
                         _F, _F, _F, _I, _P],
     # p, color, offs, vol, n, m, rx, ry, rz, scale, device, stream
     "plb_voxelize": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _I, _P],

@@ -10,34 +10,43 @@ offset 0): mass normalise, gravity x 30, per-primitive SDF collision with
 friction and softness at poses f and f+1, walls with bound 3, ground
 friction with the reference's 1e-30 tie-breakers, and the velocity clamp.
 
-On the H100 the pass reads 16 B and writes 12 B per cell (262,144 cells at
-64^3), a few MB that stay in L2; the cost is the arithmetic of the SDF,
-normal and contact response per primitive. `csrc/gridop.cu` runs one thread
-per cell, returns early for cells without mass (their output is 0 either
-way), and computes the normal and the contact response only where the
-reference's contact condition holds, which is a thin shell around each
-primitive. The primitives come in as a small table passed by value (shape
-id and parameters) and a (k, 16) device tensor of the poses at f and f+1.
+On the H100 both directions are bound by bytes: the forward reads 16 B
+and writes 12 B per cell (262,144 cells at 64^3), the backward reads 16 B
+(and the 12-byte cotangent of a cell with mass) and writes 16 B, all dense;
+the arithmetic of the SDF, normal and contact response runs only in the
+~1% of cells with mass (Move-v1) and, within them, only where a primitive
+touches. `csrc/gridop.cu` launches a 2-D grid of blocks of one env's
+consecutive cells: a warp without mass loads its rows as 16-byte loads,
+votes, and writes zeros as 16-byte stores. The primitives come in as a
+small table passed by value (shape id and parameters) and a (k, 16) device
+tensor of the poses at f and f+1, staged per block with each rotation's
+renormalised conjugate.
 
 The backward recomputes each cell's forward and runs it backwards; the
 SDF and normal Jacobians of the 7 shapes come from the same shape code on a
-dual number. It returns d grid4 (G^3, 4) and the pose cotangents (k, 16) in
+dual number, evaluated only where the float SDF says the cell is in
+contact. It returns d grid4 (G^3, 4) and the pose cotangents (k, 16) in
 the layout of `pack_poses`, which autograd routes back into pose_f and
 pose_f1 and on through the forward kinematics to the actions. The pose
-cotangents are summed over cells per block, then over blocks in a fixed
-order by a second small kernel: deterministic, no contended atomics.
+cotangents are summed in the same launch, deterministically and without
+contended atomics: per primitive a shuffle tree over each warp's cells,
+the warps of a block in order, then the env's last block to finish sums
+the blocks' rows in block order. The partition of an env's cells into
+blocks depends on G alone (`BWD_BLOCK_CELLS` cells each), so each env's
+result is bit for bit what a B = 1 launch gives, whichever block ends
+last. The rows and the per-env flags and counter (`_bwd_scratch`) are
+allocated once per device, B, scene size and stream and reused: the
+kernel leaves the flags and counters zero, and launches that share them
+run on one stream, one after the other.
 
 Both kernels take a batch of envs, a (B, G^3, 4) grid, each env with its
 own (k, 16) poses and its own softness from a (B,) device tensor (one env:
-a cached (1,) tensor). The forward runs one thread per (env, cell); the
-backward launches a 2-D grid (blocks of one env's cells, env) with partial
-sums (B, nblocks, k, 19) and reduces with a grid of (k, B) blocks, so no
-sum mixes envs and each env's result is bit for bit what a B = 1 launch
-gives. So they also replace the batched grids of K8 (`pallas_gridop.py:205`
-`grid_op_fns_batched`, forward `:234`, backward `:247`): `grid_op_batched`
-launches them over B envs, `grid_op` with B = 1, through the same autograd
-Function `GridOp`, which returns no gradient for softness. A launch over a
-leading B counts under `<name>_batched`, whatever B.
+a cached (1,) tensor). So they also replace the batched grids of K8
+(`pallas_gridop.py:205` `grid_op_fns_batched`, forward `:234`, backward
+`:247`): `grid_op_batched` launches them over B envs, `grid_op` with B = 1,
+through the same autograd Function `GridOp`, which returns no gradient for
+softness. A launch over a leading B counts under `<name>_batched`,
+whatever B.
 
 The wrapper takes the plain version only for a CPU tensor; for a CUDA
 tensor it launches the kernel (float32, contiguous) or raises, and so does
@@ -54,6 +63,11 @@ from . import cuda_build as cb
 from . import primitives as prim
 
 launches = {"grid_op": 0, "grid_op_bwd": 0, "grid_op_batched": 0, "grid_op_bwd_batched": 0}
+
+# csrc/gridop.cu kBwdTiles x kThreads: an env's cells per block of the
+# backward, which sizes its scratch
+BWD_BLOCK_CELLS = 8 * cb.THREADS
+POSE_COMPONENTS = 19  # csrc/gridop.cu kPG: a cell's pose cotangent terms per primitive
 
 SHAPE_IDS = {"Sphere": 0, "Capsule": 1, "RollingPin": 1, "Chopsticks": 2,
              "Cylinder": 3, "Torus": 4, "Box": 5}
@@ -177,6 +191,30 @@ def _check_packed(scene: SceneSpec, grid4, poses, lead=()):
     cb.require_kernel_input(poses, "poses")
 
 
+def bwd_blocks(G: int) -> int:
+    """Blocks of one env in the backward launch: ceil(G^3 / BWD_BLOCK_CELLS)."""
+    return -(-G ** 3 // BWD_BLOCK_CELLS)
+
+
+_scratch: dict = {}
+
+
+def _bwd_scratch(device, B: int, G: int, k: int, stream: int):
+    """(partials (B, nblocks, k, 19) float32, done (B, nblocks + 1) int32
+    zeros) for the backward launch, made once per (device, B, G, k,
+    stream): the blocks' pose rows, then per env a flag per block (it wrote
+    a row) and the counter of finished blocks, which the kernel leaves
+    zero. Launches on one stream run one after the other; launches on two
+    streams could overlap, so each stream has its own."""
+    key = (str(device), B, G, k, stream)
+    if key not in _scratch:
+        nblocks = bwd_blocks(G)
+        _scratch[key] = (
+            torch.empty((B, nblocks, k, POSE_COMPONENTS), device=device, dtype=torch.float32),
+            torch.zeros((B, nblocks + 1), device=device, dtype=torch.int32))
+    return _scratch[key]
+
+
 def _check_launch(scene: SceneSpec, grid4, poses, softness) -> int:
     """Checks one env's (grid4 (G^3, 4), poses (k, 16), softness (1,)) or B
     envs' (grid4 (B, G^3, 4), poses (B, k, 16), softness (B,)) kernel
@@ -188,6 +226,9 @@ def _check_launch(scene: SceneSpec, grid4, poses, softness) -> int:
     _check_packed(scene, grid4, poses, lead)
     cb.require(softness, "softness", (B,), grid4.device)
     cb.require_kernel_input(softness, "softness")
+    if grid4.data_ptr() % 16:
+        raise ValueError("grid4: the kernels read each cell as one 16-byte load; "
+                         "it must start on 16 bytes")
     return B
 
 
@@ -206,27 +247,25 @@ def _launch_fwd(scene: SceneSpec, grid4, poses, softness):
 
 
 def grid_op_bwd(scene: SceneSpec, grid4, poses, softness, ct):
-    """The K8 backward kernels: grid velocity cotangent (G^3, 3) -> (d grid4
+    """The K8 backward kernel: grid velocity cotangent (G^3, 3) -> (d grid4
     (G^3, 4), d poses (k, 16)), the VJP of `grid_op_plain` through
     `pack_poses`; with a leading B on every tensor, of
-    `grid_op_plain_batched`, in one launch of each kernel. softness: a (B,)
-    tensor on the device ((1,) for one env, or then a number). CUDA tensors
-    only."""
+    `grid_op_plain_batched`, in one launch. softness: a (B,) tensor on the
+    device ((1,) for one env, or then a number). CUDA tensors only."""
     if not torch.is_tensor(softness):
         softness = _softness_tensor(float(softness), grid4.device)
     B = _check_launch(scene, grid4, poses, softness)
     cb.require(ct, "ct", grid4.shape[:-1] + (3,), grid4.device)
     cb.require_kernel_input(ct, "ct")
-    k = len(scene.primitives)
-    nblocks = (grid4.shape[-2] + cb.THREADS - 1) // cb.THREADS
+    stream = cb.stream_of(grid4)
+    partials, done = _bwd_scratch(grid4.device, B, scene.simulator.n_grid,
+                                  len(scene.primitives), stream)
     dgrid4 = torch.empty_like(grid4)
     dposes = torch.empty_like(poses)
-    partials = torch.empty((B, nblocks, k, 19), device=grid4.device, dtype=torch.float32)
     err = cb.library().plb_grid_op_bwd(
         grid4.data_ptr(), poses.data_ptr(), softness.data_ptr(), ct.data_ptr(),
-        dgrid4.data_ptr(), dposes.data_ptr(), partials.data_ptr(),
-        prim_table(scene.primitives), B, *_consts(scene), grid4.device.index,
-        cb.stream_of(grid4))
+        dgrid4.data_ptr(), dposes.data_ptr(), partials.data_ptr(), done.data_ptr(),
+        prim_table(scene.primitives), B, *_consts(scene), grid4.device.index, stream)
     name = cb.launch_key("grid_op_bwd", grid4)
     cb.check(err, name)
     launches[name] += 1
