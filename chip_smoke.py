@@ -47,7 +47,16 @@ Phases, each fatal on failure:
 8. solve: `Solver.solve_device`, 3 Adam iterations on Move-v1, horizon 50;
 9. voxelize kernel: K9 against its plain version at Move-v1 shapes (the
    task's initial 10,000-particle cloud), at the frame's 168^3 grid
-   (dist_scale 0.2) and the observation's 84^3 grid (0.4), bit for bit;
+   (dist_scale 0.2) and the observation's 84^3 grid (0.4), bit for bit,
+   and the one `scatter_reduce_` that computes its min (`library_ms`;
+   `flat` and `packed` computed before timing); bit for bit on three clouds
+   at both grids, at one env (its direct mode) and as 32 copies (its
+   privatised mode): 10,000 particles in one voxel, particles in the first
+   and last cells and just outside the volume (negative coordinates too),
+   stencils straddling the sort's coarse-cell edges on all three axes;
+   K9-b (B envs in one launch) at B = 8 and 32 on Move-v1's cloud
+   with per-env jitter, bit for bit against its plain version and per env
+   against B = 1 launches; kernel, plain, bound and library times;
 10. render reference: the Move-v1 initial-state packed volumes (unsaturated
    cells, sdf byte sum, CRC32) and 8 probe rays (plasticine, spheres,
    ground) against values computed by the reference package;
@@ -67,7 +76,14 @@ Phases, each fatal on failure:
    (env steps/s, peak memory; launch counts prove that every substep ran
    each batched kernel once for the whole batch: 950 each and 50 of
    K7-fwd-b, whatever B); B = 8 without jitter: every env equals env 0, and
-   env 0 equals `make("Move-v1")` after 5 steps;
+   env 0 equals `make("Move-v1")` after 5 steps; then vec rgb:
+   `VecPlasticineEnv("Move-v1", batch=B, obs_mode="rgb")` for B = 1, 8 and
+   32, reset + 50 seeded steps, each fetching the (B, 64, 64, 3) frames,
+   reward and info (rgb vec env steps/s, peak memory; launch counts: one
+   K9-b launch per batched step and one at reset, 51 whatever B, and no
+   single-env K9 launch); at B = 8, each env's frame against the single
+   env's `render_obs` of the same state, the draws of the single renders
+   replayed into the batched one: equal uint8 frames;
 14. vec gradient: `build_batched_rollout_grad` on Move-v1 (horizon 50,
    bench.py's actions tiled over B, `batch_states(..., jitter=1e-3)`) for
    B = 1, 8 and 32: launch counts (950 of each batched substep backward
@@ -101,7 +117,8 @@ Phases, each fatal on failure:
    PLAIN_REPS calls), K8 forward and backward at B = 1, 8 and 32, K1 / K2
    at 320,000 particles and the gathers once more and by CUDA events
    (L2-cold and L2-warm), the
-   device's busy share in an rgb env step and a 1-spp frame, in 5 batched
+   device's busy share in an rgb env step and a 1-spp frame, in 2 batched
+   rgb env steps at B = 1, 8 and 32, in 5 batched
    env steps and in a 2-step batched gradient at B = 1 and B = 32 with the
    device operations per batched substep (B = 32 within 1.2x of B = 1: no
    per-env loop, forward or backward), after everything else (an active
@@ -113,8 +130,9 @@ or where every profile lost events the L2-warm CUDA-event median less the
 events' own time around an empty call (the log says which); for a backward
 kernel, the plain version's time is that of its autograd backward alone; `bound_ms`: the least time of the same work
 on an H100 at its published peaks, from this run's inputs; `library_ms`:
-null, no single PyTorch call computes any of these functions), then as the
-last line {"ok": true, "device": {...}}.
+the device time of K9's min as one `scatter_reduce_` on its int64 volume,
+else null: no single PyTorch call computes the other functions), then as
+the last line {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -273,6 +291,9 @@ VEC_GRAD_PROFILE_STEPS = 2    # horizon of the profiled batched gradient
 VEC_ROW_TOL = {"loss": 1e-4, "grad": 2e-2}
 RENDER_STEPS = 5      # Move-v1 steps before the frame
 RGB_STEPS = 50        # rgb-observation env steps
+VOX_BATCHES = (8, 32)  # envs of the batched voxelizer checks
+VOX_JITTER = 1e-3     # per-env noise of Move-v1's cloud there, world units
+RGB_PROFILE_STEPS = 2  # batched rgb env steps profiled per B
 SOLVE_ACTION_T = 5    # solve_action's episode length; 2 Adam iterations
 
 # The card's published peaks (H100 SXM, NVIDIA's data sheet, dense, at
@@ -282,8 +303,8 @@ PEAK_F32_S = 67e12
 # Operations per item of each kernel, counted from its source (an add,
 # multiply, compare, sqrt, exp or log is one; an fma two; index arithmetic
 # not counted): per particle for the stress and transfer kernels, per cell
-# with mass for the grid update, per (particle, offset) update for the
-# voxelizer. A grid that a kernel only gathers from under its particles
+# with mass for the grid update, per (particle, offset) update that lands
+# in the volume for the voxelizer. A grid that a kernel only gathers from under its particles
 # (K4, K5, K6, K7 backward), and the cotangent that K8 backward reads only
 # at cells with mass, count by the cells read (`Gathered`): what this run's
 # data needs, not the whole grid.
@@ -292,7 +313,7 @@ PEAK_F32_S = 67e12
 # before its adjoint; SASS has 1,848 and 2,752 instructions per particle).
 OPS_PER_ITEM = {"stress_affine": 2093, "stress_affine_bwd": 3141, "p2g": 900,
                 "p2g_bwd": 1800, "grid_mass": 150, "grid_mass_bwd": 300, "g2p": 700,
-                "g2p_bwd": 1400, "grid_op": 300, "grid_op_bwd": 1500, "voxelize": 25}
+                "g2p_bwd": 1400, "grid_op": 300, "grid_op_bwd": 1500, "voxelize": 13}
 # the batched kernels do B times the work of the single-env ones
 BATCHED_FWD = {"p2g_batched": "p2g", "grid_mass_batched": "grid_mass", "g2p_batched": "g2p",
                "grid_op_batched": "grid_op"}
@@ -300,6 +321,7 @@ BATCHED_BWD = {"p2g_bwd_batched": "p2g_bwd", "grid_mass_bwd_batched": "grid_mass
                "g2p_bwd_batched": "g2p_bwd", "grid_op_bwd_batched": "grid_op_bwd"}
 BATCHED = {**BATCHED_FWD, **BATCHED_BWD}
 OPS_PER_ITEM.update({k: OPS_PER_ITEM[v] for k, v in BATCHED.items()})
+OPS_PER_ITEM["voxelize_batched"] = OPS_PER_ITEM["voxelize"]
 
 REPLACES = {
     "stress_affine": "plasticinelab_tpu/engine/pallas_stress.py:201",
@@ -313,6 +335,8 @@ REPLACES = {
     "grid_op_bwd": "plasticinelab_tpu/engine/pallas_gridop.py:97",
     "g2p_bwd": "plasticinelab_tpu/engine/pallas_local.py:388",
     "voxelize": "plasticinelab_tpu/engine/renderer/pallas_voxelize.py:69",
+    # the same pallas_call, vmapped over the envs (parallel/rollout.py:148)
+    "voxelize_batched": "plasticinelab_tpu/engine/renderer/pallas_voxelize.py:163",
     "p2g_batched": "plasticinelab_tpu/engine/pallas_local.py:767",
     "grid_mass_batched": "plasticinelab_tpu/engine/pallas_local.py:892",
     "grid_op_batched": "plasticinelab_tpu/engine/pallas_gridop.py:234",
@@ -336,6 +360,7 @@ SOURCES = {
     "voxelize": "plasticinelab_tpu_torch/csrc/voxelize.cu",
 }
 SOURCES.update({k: SOURCES[v] for k, v in BATCHED.items()})
+SOURCES["voxelize_batched"] = SOURCES["voxelize"]
 # kernels whose device time is read again in the device-times phase, beside
 # CUDA events L2-cold and L2-warm: readings that spread across runs of
 # unchanged code (K1 at the batched path's 320,000 particles), the gathers
@@ -402,10 +427,11 @@ def sass_counts(lib):
 
 
 # The port's kernels, each launched once per launch that its wrapper counts
-# (K8 backward sums its pose cotangents in the same launch: one kernel).
+# (K8 backward sums its pose cotangents in the same launch: one kernel; a K9
+# launch runs `voxel_fill_kernel` once, beside its sort and scatter).
 PORT_KERNELS = re.compile(r"\b(?:stress_affine_kernel|stress_affine_bwd_kernel|p2g_kernel|"
                           r"p2g_bwd_kernel|g2p_kernel|g2p_bwd_kernel|grid_op_kernel|"
-                          r"grid_op_bwd_kernel|voxelize_kernel)\b")
+                          r"grid_op_bwd_kernel|voxel_fill_kernel)\b")
 
 
 def counted_launches():
@@ -1322,43 +1348,109 @@ def grids(te):
     return {"frame": Renderer(te.scene, DEVICE), "obs": Renderer(obs_scene(te.scene, 64, 2), DEVICE)}
 
 
+def stress_clouds(res, edge, n=10_000):
+    """name -> (n, 3) float32 voxel-unit clouds that stress K9 on a grid res
+    whose sort takes coarse cells of `edge` cells a side: every particle in
+    one voxel (the worst contention, one chunk box); particles in the first
+    and last cells and up to 3 cells outside the volume, negative
+    coordinates (truncating toward zero) among them; stencils straddling
+    coarse-cell edges on all three axes."""
+    rng = np.random.default_rng(SEED + 11)
+    r, t = np.array(res), edge
+    one = np.floor(r / 2) + rng.uniform(0.05, 0.95, (n, 3))
+    pick = rng.integers(0, 4, (n, 3))
+    edge = np.choose(pick, [rng.uniform(0.0, 1.0, (n, 3)), r - 1 + rng.uniform(0.0, 1.0, (n, 3)),
+                            -rng.uniform(0.0, 3.0, (n, 3)), r + rng.uniform(0.0, 3.0, (n, 3))])
+    k = rng.integers(1, np.maximum(r // t, 2), (n, 3))
+    straddle = k * t + rng.uniform(-1.5, 1.5, (n, 3))
+    return {name: np.ascontiguousarray(c, np.float32)
+            for name, c in (("one voxel", one), ("edges", edge), ("cell edges", straddle))}
+
+
+def voxelize_case(results, key, p, colors, r, check_envs=False):
+    """K9 on voxel-unit particles p ((n, 3) or (B, n, 3)) of renderer r's
+    grid: bit for bit against its plain version and against the one
+    `scatter_reduce_` that computes its min (check_envs: and per env
+    against B = 1 launches); times the kernel, the plain version and that
+    call (its `flat` and `packed` computed before), bounds the call from
+    its inputs and output and the updates that land in the volume."""
+    import torch
+
+    from plasticinelab_tpu_torch.engine.renderer import cuda_voxelize as cv
+
+    args = (p, colors, r.voxel_res, r.bake_size, r.dist_scale)
+    got, want = cv.voxelize(*args), cv.voxelize_plain(*args)
+    differ = int((got != want).sum())
+    flat, packed = cv.scatter_inputs(*args)
+    vol64 = torch.full((got.numel(),), 0xFFFFFFFF, dtype=torch.int64, device=DEVICE)
+
+    def lib():
+        return vol64.scatter_reduce_(0, flat, packed, reduce="amin", include_self=True)
+
+    lib()
+    differ_lib = int((cv._to_int32_bits(vol64).reshape(got.shape) != got).sum())
+    per_env = 0
+    if check_envs:
+        per_env = sum(int((cv.voxelize(p[b:b + 1], *args[1:])[0] != got[b]).sum())
+                      for b in range(p.shape[0]))
+    written = int((got != -1).sum())
+    log(f"  {key:28s} {tuple(p.shape)} on {r.voxel_res}: cells that differ from the plain "
+        f"version {differ}, from scatter_reduce_ {differ_lib}"
+        + (f", from B = 1 launches {per_env}" if check_envs else "")
+        + f"; {written} cells written, {flat.numel()} updates in the volume")
+    if differ or differ_lib or per_env:
+        raise AssertionError(f"voxelize {key}: the kernel differs")
+    kern = lambda a=args: cv.voxelize(*a)  # noqa: E731
+    plain = lambda a=args: cv.voxelize_plain(*a)  # noqa: E731
+    k_wall, p_wall, l_wall = wall_time(kern), wall_time(plain), wall_time(lib)
+    b_ms, b_by = bound("voxelize", [p, colors, got], flat.numel())
+    log(f"  {key:28s} wall ms/call: kernel {k_wall:.4f}  plain {p_wall:.4f}  scatter_reduce_ "
+        f"{l_wall:.4f}  bound {b_ms:.5f} ({b_by})")
+    results[key] = dict(max_abs_err=0.0, rel_err=0.0, ms=k_wall, plain_ms=p_wall,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=l_wall,
+                        calls=(kern, plain, lib))
+
+
 def phase_voxelize():
-    """K9 vs its plain version at Move-v1 shapes, at both grids; the line's
-    entry is the observation grid's, the size of the rgb run's 51 launches."""
-    from plasticinelab_tpu_torch.engine.renderer import cuda_voxelize
+    """K9 at Move-v1 shapes at both grids and on the stress clouds, one env
+    and (privatised) as 32 copies; K9-b at VOX_BATCHES envs. The line's
+    entries: the observation grid's (the size of the rgb run's 51 launches)
+    and K9-b's at the largest B."""
+    import torch
+
+    from plasticinelab_tpu_torch.engine.renderer import cuda_voxelize as cv
 
     te, x, colors = move_textures_inputs()
     results = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, r in grids(te).items():
+        offs = cv.offsets(r.bake_size, r.dist_scale)
+        n = x.shape[0]
+        modes = {B: cv.launch_shape(r.voxel_res, n, B, sms) for B in (1, 32)}
+        log(f"phase voxelize kernel [{name}]: grid {r.voxel_res}, {len(offs)} offsets spanning "
+            f"[{offs.min()}, {offs.max()}], dist_scale {r.dist_scale:.6g}; (sort, coarse shift, "
+            f"chunk) at B = 1: {modes[1]}, at B = 32: {modes[32]}")
         p = ((x - r.frame_bbox(x)[0]) * r.inv_dx).contiguous()
-        args = (p, colors, r.voxel_res, r.bake_size, r.dist_scale)
-        got = cuda_voxelize.voxelize(*args).long() & 0xFFFFFFFF
-        want = cuda_voxelize.voxelize_plain(*args).long() & 0xFFFFFFFF
-        differ = int((got != want).sum())
-        m = len(cuda_voxelize.offsets(r.bake_size, r.dist_scale))
-        log(f"phase voxelize kernel [{name}]: grid {r.voxel_res}, n={p.shape[0]}, {m} offsets, "
-            f"dist_scale {r.dist_scale:.6g}; cells that differ from the plain version: {differ}")
-        if differ:
-            # the fallback bound of tests/test_pallas_voxelize.py: sdf bytes
-            # within 1 on under 1e-3 of the cells, equal where they agree
-            dsdf = ((got >> 24) - (want >> 24)).abs()
-            same = dsdf == 0
-            if not (int(dsdf.max()) <= 1 and float((~same).float().mean()) < 1e-3
-                    and bool((got[same] == want[same]).all())):
-                raise AssertionError(f"voxelize [{name}]: kernel and plain version disagree")
-        kern = lambda a=args: cuda_voxelize.voxelize(*a)  # noqa: E731
-        plain = lambda a=args: cuda_voxelize.voxelize_plain(*a)  # noqa: E731
-        k_wall, p_wall = wall_time(kern), wall_time(plain)
-        b_ms, b_by = bound("voxelize", [p, colors, kern()], p.shape[0] * m)
-        log(f"  voxelize [{name}] wall ms/call: kernel {k_wall:.4f}  plain {p_wall:.4f}  "
-            f"bound {b_ms:.5f} ({b_by}); {int((got != 0xFFFFFFFF).sum())} cells written")
-        max_abs = float((got - want).abs().max())
-        results[name] = dict(max_abs_err=max_abs, rel_err=max_abs / float(want.max()), ms=k_wall,
-                             plain_ms=p_wall, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                             calls=(kern, plain))
-    # the frame grid's entry is profiled and logged with the others but is
-    # not in the kernels line
-    return {"voxelize": results["obs"], "voxelize_frame": results["frame"]}
+        key = "voxelize" if name == "obs" else f"voxelize_{name}"
+        voxelize_case(results, key, p, colors, r)
+        for cloud, pc in stress_clouds(r.voxel_res, 1 << modes[32][1], n).items():
+            for B in (1, 32):  # direct, privatised
+                pt = tensor(np.broadcast_to(pc, (B,) + pc.shape))
+                args = (pt if B > 1 else pt[0], colors, r.voxel_res, r.bake_size, r.dist_scale)
+                differ = int((cv.voxelize(*args) != cv.voxelize_plain(*args)).sum())
+                log(f"  {cloud:12s} B={B:2d} cells that differ from the plain version: {differ}")
+                if differ:
+                    raise AssertionError(f"voxelize [{name}] {cloud} B={B}: the kernel differs")
+    r = grids(te)["obs"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    for B in VOX_BATCHES:
+        xb = x + (torch.rand((B,) + x.shape, generator=gen, device=DEVICE) * 2 - 1) * VOX_JITTER
+        p = ((xb - r.frame_bbox(xb, host_bbox=False)[:, 0, None]) * r.inv_dx).contiguous()
+        key = "voxelize_batched" if B == VOX_BATCHES[-1] else f"voxelize_batched[B={B}]"
+        log(f"phase voxelize kernel [obs, B={B}]: Move-v1's cloud, per-env noise "
+            f"uniform(-{VOX_JITTER}, {VOX_JITTER})")
+        voxelize_case(results, key, p, colors, r, check_envs=True)
+    return results
 
 
 def phase_render_reference():
@@ -1681,6 +1773,125 @@ def phase_vec():
         f"{rel:.3e} (bound {REF_TOL:.0e})")
     if not (diff <= STEP_TOL["x"] * scale and rel <= REF_TOL):
         raise AssertionError("the batched env's env 0 differs from the single env")
+    return out
+
+
+def recording(sampler):
+    """A sampler for Renderer.uniform that keeps the draws it hands out."""
+    draws = []
+
+    def uniform(shape):
+        draws.append(sampler(shape))
+        return draws[-1]
+
+    uniform.draws = draws
+    return uniform
+
+
+def replaying(draws):
+    """A sampler for Renderer.uniform that hands out `draws` in order."""
+    it = iter(draws)
+
+    def uniform(shape):
+        a = next(it)
+        if tuple(a.shape) != tuple(shape):
+            raise AssertionError(f"replayed draw {tuple(a.shape)} for {tuple(shape)}")
+        return a
+
+    return uniform
+
+
+def phase_vec_rgb():
+    """VecPlasticineEnv("Move-v1", obs_mode="rgb") for each B of VEC_BATCHES:
+    reset and RGB_STEPS seeded steps, each fetching the frames, reward and
+    info; then at B = VEC_B each env's frame against the single env's
+    render_obs of its state, the single renders' draws replayed."""
+    import torch
+
+    from plasticinelab_tpu_torch.engine import cuda_gridop, cuda_stress, cuda_transfer
+    from plasticinelab_tpu_torch.engine.renderer import cuda_voxelize, renderer
+    from plasticinelab_tpu_torch.engine.state import SimState, state_fields
+    from plasticinelab_tpu_torch.envs import make
+    from plasticinelab_tpu_torch.parallel import VecPlasticineEnv
+
+    mods = (cuda_stress, cuda_transfer, cuda_gridop, cuda_voxelize)
+    out = {"envs": {}, "sps": {}, "launches": {}}
+    for B in VEC_BATCHES:
+        t0 = time.perf_counter()
+        ve = VecPlasticineEnv("Move-v1", batch=B, seed=SEED, horizon=RGB_STEPS, obs_mode="rgb",
+                              device=DEVICE)
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+        sub = ve.scene.simulator.substeps
+        for mod in mods:
+            mod.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        frames = [ve.reset().cpu().numpy()]
+        stamps = [time.perf_counter()]
+        rng = np.random.default_rng(SEED)
+        for a in rng.uniform(-1, 1, (RGB_STEPS, B, ve.action_dim)):
+            obs, reward, done, info = ve.step(a)
+            frames.append(obs.cpu().numpy())
+            host = torch.cat([reward, info["loss"], info["iou"]]).cpu().numpy()
+            stamps.append(time.perf_counter())
+            if not np.isfinite(host).all():
+                raise AssertionError(f"B={B}: non-finite reward or info")
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: v for mod in mods for k, v in mod.launches.items()}
+        for f in frames:
+            if f.shape != (B, 64, 64, 3) or f.dtype != np.uint8 or not 0 < f.mean() < 255:
+                raise AssertionError(f"B={B}: bad frames {f.shape} {f.dtype} mean {f.mean()}")
+        sps = B * (RGB_STEPS - 1) / (stamps[-1] - stamps[1])
+        log(f"phase vec rgb: VecPlasticineEnv('Move-v1', batch={B}, obs_mode='rgb'): set-up "
+            f"{t_setup:.3f} s, reset + {RGB_STEPS} steps; launches {launches}")
+        log(f"  rgb vec env steps/s {sps:.3f} (B x steps 2..{RGB_STEPS} over host seconds), "
+            f"batched step {1e3 * (stamps[-1] - stamps[1]) / (RGB_STEPS - 1):.3f} ms; peak "
+            f"device memory {(peak - base) / 2**30:.4f} GiB above {base / 2**30:.3f} GiB at "
+            f"start; frame mean {frames[-1].mean():.4f}; envs' last frames all equal: "
+            f"{bool((frames[-1] == frames[-1][:1]).all())}")
+        expected = {"voxelize_batched": RGB_STEPS + 1, "voxelize": 0,
+                    "p2g_batched": RGB_STEPS * sub, "grid_op_batched": RGB_STEPS * sub}
+        for key, want in expected.items():
+            if launches[key] != want:
+                raise AssertionError(f"B={B}: {key} ran {launches[key]} times, expected {want}")
+        out["envs"][B], out["sps"][B] = ve, sps
+        out["launches"][B] = launches["voxelize_batched"]
+
+    # each env's frame against the single env's render_obs of its state
+    ve = out["envs"][VEC_B]
+    env = make("Move-v1", device=DEVICE, obs_mode="rgb")
+    te = env.unwrapped.taichi_env
+    te.render_obs(64, 2)  # builds its observation renderer
+    singles, draws = [], []
+    for b in range(VEC_B):
+        te.state = SimState(*(t[b] for t in state_fields(ve.states)))
+        sampler = recording(renderer.torch_sampler(DEVICE, SEED + 20 + b))
+        te._obs_renderer.uniform = sampler
+        singles.append(te.render_obs(64, 2))
+        draws.append(sampler.draws)
+    ve._renderer.uniform = replaying([torch.cat(d) for d in zip(*draws)])
+    with torch.no_grad():
+        got = ve._observe(ve.states).cpu().numpy()
+    differ = [int((got[b] != singles[b]).any(-1).sum()) for b in range(VEC_B)]
+    log(f"phase vec rgb parity: B={VEC_B} after {RGB_STEPS} steps, each env's frame against "
+        f"the single env's render_obs of its state, draws replayed: pixels that differ "
+        f"{differ}; frame means {[round(float(f.mean()), 3) for f in singles]}")
+    if any(differ):
+        # the float bound, from the same draws
+        ve._renderer.uniform = replaying([torch.cat(d) for d in zip(*draws)])
+        with torch.no_grad():
+            xs = ve.states
+            batched = ve._obs_fn(xs.x.float(), ve._colors, xs.prim_pos, xs.prim_rot, xs.prim_gap)
+            err = 0.0
+            for b in range(VEC_B):
+                te.state = SimState(*(t[b] for t in state_fields(xs)))
+                te._obs_renderer.uniform = replaying(draws[b])
+                single = te._visual_obs_fn(*te._state_args())
+                err = max(err, float((batched[b] - single).abs().max()))
+        log(f"  float images: max abs difference {err:.3e}")
+        raise AssertionError("the batched frames differ from the single env's")
+    ve._renderer.uniform = renderer.torch_sampler(DEVICE, SEED + 1)
     return out
 
 
@@ -2213,6 +2424,8 @@ def main():
     results.update(timed(phase_vec_kernels))
     vec = timed(phase_vec)
     launches.update({k: vec["launches"][k] for k in BATCHED_FWD})
+    vec_rgb = timed(phase_vec_rgb)
+    launches["voxelize_batched"] = vec_rgb["launches"][VEC_BATCHES[-1]]
     vgrad = timed(phase_vec_gradient)
     results.update(timed(phase_vec_backward))
     launches.update({k: vgrad["launches"][k] for k in BATCHED_BWD})
@@ -2226,10 +2439,13 @@ def main():
         "event times below")
     calls = {k: r.pop("calls") for k, r in results.items()}
     # the kernels' profiles first: losses began with the plain versions'
-    # profiles of tens of thousands of events (PERF.md)
-    for which, field in ((0, "ms"), (1, "plain_ms")):
-        reps = PLAIN_REPS if which else KERNEL_REPS
+    # profiles of tens of thousands of events (PERF.md); then the library
+    # calls (K9's scatter_reduce_)
+    for which, field in ((0, "ms"), (1, "plain_ms"), (2, "library_ms")):
+        reps = PLAIN_REPS if which == 1 else KERNEL_REPS
         for k, r in results.items():
+            if which >= len(calls[k]):
+                continue
             fn, how = calls[k][which], "profiler"
             ms = device_time(fn, reps)
             if ms is None:
@@ -2248,6 +2464,16 @@ def main():
     busy, wall, share = busy_share(lambda: render["env"].unwrapped.taichi_env.render(spp=1))
     log(f"  512^2 frame at 1 spp: device busy {busy} ms of {wall:.3f} ms wall, busy share "
         f"{share}")
+    for B, ve in vec_rgb["envs"].items():
+        zeros = np.zeros((ve.batch, ve.action_dim))
+        busy, wall, share, ops, calls = vec_profile(
+            lambda: [ve.step(zeros)[0].cpu() for _ in range(RGB_PROFILE_STEPS)])
+        log(f"  {RGB_PROFILE_STEPS} batched rgb env steps, B={B}: device busy "
+            f"{busy / RGB_PROFILE_STEPS:.3f} ms of {wall / RGB_PROFILE_STEPS:.3f} ms wall per "
+            f"step, busy share {share:.4f}; per step: device operations "
+            f"{ops / RGB_PROFILE_STEPS:.1f}, runtime calls "
+            + ", ".join(f"{k} {v / RGB_PROFILE_STEPS:.1f}" for k, v in calls.items())
+            + f"; rgb vec env steps/s {vec_rgb['sps'][B]:.3f} (unprofiled run)")
     per_substep = {}
     for B in (VEC_BATCHES[0], VEC_BATCHES[-1]):
         ve = vec["envs"][B]

@@ -83,8 +83,9 @@ _SIGNATURES = {
     # B, G, dx, dt, gravity xyz, ground_friction, vmax, device, stream
     "plb_grid_op_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, PrimTable, _I, _I, _F, _F, _F, _F,
                         _F, _F, _F, _I, _P],
-    # p, color, offs, vol, n, m, rx, ry, rz, scale, device, stream
-    "plb_voxelize": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _I, _P],
+    # p, color, offs, sorted, count, vol, n, B, m, rx, ry, rz, lo, hi, sort,
+    # shift, chunk, scale, device, stream
+    "plb_voxelize": [_P] * 6 + [_I] * 11 + [_F, _I, _P],
 }
 
 

@@ -173,9 +173,11 @@ def sdf(spec: PrimitiveSpec, pos, rot, gap, p):
     return _local_sdf(spec, inv_trans(p, pos, rot), gap)
 
 
-def bounding_radius(spec: PrimitiveSpec, gap) -> float:
+def bounding_radius(spec: PrimitiveSpec, gap):
     """Radius of a sphere centered at the primitive's world position that
-    contains its entire {sdf <= 0} set (conservative)."""
+    contains its entire {sdf <= 0} set (conservative): a float, or for a
+    Chopsticks given its gap as a tensor, a tensor of the gap's shape and
+    type (no host sync)."""
     shape = spec.shape
     if shape == "Sphere":
         return float(spec.radius)
@@ -183,7 +185,7 @@ def bounding_radius(spec: PrimitiveSpec, gap) -> float:
         return spec.h / 2 + spec.r
     if shape == "Chopsticks":
         # parts span y in [-h, 0] around the handle origin, offset +-gap/2
-        return spec.h + spec.r + abs(float(gap)) / 2
+        return spec.h + spec.r + abs(gap) / 2
     if shape == "Cylinder":
         return math.hypot(spec.h, spec.r)
     if shape == "Torus":

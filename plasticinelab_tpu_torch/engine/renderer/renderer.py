@@ -26,7 +26,11 @@ Differences of form from the reference package, none of result:
 - randomness comes from one sampler, `uniform(shape) -> tensor`, called in
   the same order and with the same shapes as the reference package's draws
   (`torch_sampler`: torch.rand on a torch.Generator seeded 0). The tests
-  hand it the reference package's own draws.
+  hand it the reference package's own draws;
+- B envs render in one pass where the reference package vmaps its
+  single-env observation: textures carry a leading env, rays are env-major
+  with each ray's env picking its box, texture rows and poses, and a draw
+  for B envs is the envs' own draws one after another (one env is B = 1).
 """
 from __future__ import annotations
 
@@ -83,29 +87,33 @@ def _norm(x, keepdim=False):
 # ---------------------------------------------------------------------------
 
 def _pack_corners(t3):
-    """(X, Y, Z) -> (X*Y*Z, 8) bf16 rows of the 8 edge-clamped trilinear
-    corner values (i-major order), so one gather serves a full sample."""
+    """(B, X, Y, Z) -> (B*X*Y*Z, 8) bf16 rows of the 8 edge-clamped
+    trilinear corner values (i-major order), so one gather serves a full
+    sample; env b's rows from b*X*Y*Z."""
     outs = []
     for i in (0, 1):
-        tx = t3 if i == 0 else torch.cat([t3[1:], t3[-1:]], 0)
+        tx = t3 if i == 0 else torch.cat([t3[:, 1:], t3[:, -1:]], 1)
         for j in (0, 1):
-            ty = tx if j == 0 else torch.cat([tx[:, 1:], tx[:, -1:]], 1)
+            ty = tx if j == 0 else torch.cat([tx[:, :, 1:], tx[:, :, -1:]], 2)
             for k in (0, 1):
-                tz = ty if k == 0 else torch.cat([ty[:, :, 1:], ty[:, :, -1:]], 2)
+                tz = ty if k == 0 else torch.cat([ty[..., 1:], ty[..., -1:]], 3)
                 outs.append(tz.reshape(-1))
     return torch.stack(outs, dim=-1).to(torch.bfloat16)
 
 
-def _corner_rows(pack, res, pos):
+def _corner_rows(pack, res, pos, row0=None):
     """Gather the packed corner rows for pos (texture coords in [0,1]^3) ->
     (rows (..., 8 or 9[, 3]) float32, fractions (..., 3)); the reference's
-    uncentered indexing (sample_tex :137-155)."""
+    uncentered indexing (sample_tex :137-155). row0: each point's env's
+    first row (env * X*Y*Z), or None for a texture of one env."""
     a, b, c = res
     p = pos * torch.tensor([a, b, c], dtype=F32, device=pos.device)
     hi = torch.tensor([a - 1, b - 1, c - 1], dtype=torch.int32, device=pos.device)
     base = torch.clamp(torch.minimum(p.to(torch.int32), hi), min=0)
     fx = p - base.to(F32)
     idx = (base[..., 0] * b + base[..., 1]) * c + base[..., 2]
+    if row0 is not None:
+        idx = idx + row0
     return pack[idx].to(F32), fx
 
 
@@ -137,30 +145,32 @@ def _trilerp_grad(v, fx):
 
 
 def _near_bounds(near):
-    """Tight bounds (voxel units) of the near-cell set: every threshold
-    crossing lives inside [lo, hi]. Empty near set -> lo > hi."""
-    any_near = near.any()
+    """Tight bounds (voxel units) of each env's near-cell set, near
+    (B, X, Y, Z): every threshold crossing lives inside [lo, hi], (B, 3)
+    each. Empty near set -> lo > hi."""
+    any_near = near.flatten(1).any(dim=1)
     n8 = near.to(torch.uint8)
     los, his = [], []
     for ax in range(3):
-        proj = n8.amax(dim=tuple(a for a in range(3) if a != ax))
-        n = proj.shape[0]
-        lo = torch.argmax(proj)
-        hi = n - 1 - torch.argmax(proj.flip(0))
+        proj = n8.amax(dim=tuple(1 + a for a in range(3) if a != ax))  # (B, n)
+        n = proj.shape[1]
+        lo = torch.argmax(proj, dim=1)
+        hi = n - 1 - torch.argmax(proj.flip(1), dim=1)
         los.append(torch.where(any_near, lo, 1).to(F32))
         his.append(torch.where(any_near, hi + 1, 0).to(F32))
-    return torch.stack(los), torch.stack(his)
+    return torch.stack(los, dim=1), torch.stack(his, dim=1)
 
 
 def _min_pool(x, k, pad):
-    return -F.max_pool3d(-x[None, None], k, stride=1, padding=pad)[0, 0]
+    return -F.max_pool3d(-x[:, None], k, stride=1, padding=pad)[:, 0]
 
 
 def _cell_distance_field(sdf3, threshold, iters=24):
     """Exact (clamped) Chebyshev distance, in cells, from each cell to the
-    nearest NEAR cell (the min of its 8 corners below threshold); from a
-    point in a cell with distance D, everything strictly within D - 1 voxels
-    lies in far cells, which no crossing can enter."""
+    nearest NEAR cell (the min of its 8 corners below threshold), per env of
+    sdf3 (B, X, Y, Z); from a point in a cell with distance D, everything
+    strictly within D - 1 voxels lies in far cells, which no crossing can
+    enter."""
     padded = F.pad(sdf3, (0, 1, 0, 1, 0, 1), value=float("inf"))
     near = _min_pool(padded, 2, 0) < threshold
     d = torch.where(near, 0.0, float(iters + 1)).to(F32)
@@ -170,20 +180,20 @@ def _cell_distance_field(sdf3, threshold, iters=24):
 
 
 def _smooth27(vol):
-    """27-tap box filter, border cells forced to 1 (reference smooth
-    :88-98). Summed in the window's row-major order from 0, as the
-    reference package's reduce_window runs, then scaled by 1/27."""
-    X, Y, Z = vol.shape
+    """27-tap box filter per env of vol (B, X, Y, Z), border cells forced to
+    1 (reference smooth :88-98). Summed in the window's row-major order from
+    0, as the reference package's reduce_window runs, then scaled by 1/27."""
+    _, X, Y, Z = vol.shape
     p = F.pad(vol, (1, 1, 1, 1, 1, 1))
     acc = torch.zeros_like(vol)
     for i in range(3):
         for j in range(3):
             for k in range(3):
-                acc = acc + p[i:i + X, j:j + Y, k:k + Z]
+                acc = acc + p[:, i:i + X, j:j + Y, k:k + Z]
     out = acc * (1.0 / 27.0)
-    out[0], out[-1] = 1.0, 1.0
     out[:, 0], out[:, -1] = 1.0, 1.0
     out[:, :, 0], out[:, :, -1] = 1.0, 1.0
+    out[..., 0], out[..., -1] = 1.0, 1.0
     return out
 
 
@@ -199,19 +209,21 @@ def _ray_aabb(box_min, box_max, o, d):
     return (near <= far) & inside0, near, far
 
 
-def _sample_s(pack, res, b0, span, thr, pos):
+def _sample_s(pack, res, b0, span, thr, pos, row0):
     """Threshold-shifted trilinear sample at world points, 0 outside the
     texture box; also the rows gathered."""
     rel = (pos - b0) / span
     ok = (rel.amin(dim=-1) >= 0) & (rel.amax(dim=-1) <= 1)
-    v, fx = _corner_rows(pack, res, rel)
+    v, fx = _corner_rows(pack, res, rel, row0)
     return torch.where(ok, _trilerp(v[..., :8], fx) - thr, 0.0), v
 
 
-def _march(pack9, res, bbox, thr, h, vox, o, d, t0, tfar, active0, refine, cap=512):
+def _march(pack9, res, bbox, thr, h, vox, o, d, t0, tfar, active0, refine, env=None, cap=512):
     """First threshold crossing of the trilinear field along o + t d, for
     the rays in active0 -> (hit, t_hit) over all rays (`_march_packed` and
     `_refine_packed` of the reference package, on the active rays only).
+    env: each ray's env, whose box bbox[env] (B, 2, 3) and rows of pack9 it
+    marches; None for a texture of one env in the box bbox (2, 3).
 
     One gather per step: the row holds the 8 trilinear corners and the
     cell's distance to the surface. Far from the surface a ray skips (D - 1)
@@ -224,14 +236,19 @@ def _march(pack9, res, bbox, thr, h, vox, o, d, t0, tfar, active0, refine, cap=5
     if lanes.numel() == 0:
         return hit, thit
     o, d, t, tfar = o[lanes], d[lanes], t0[lanes], tfar[lanes]
-    b0, span = bbox[0], bbox[1] - bbox[0]
+    if env is None:
+        b0, span, row0 = bbox[0], bbox[1] - bbox[0], None
+    else:
+        box = bbox[env[lanes]]
+        b0, span = box[:, 0], box[:, 1] - box[:, 0]
+        row0 = env[lanes].to(torch.int32) * (res[0] * res[1] * res[2])
     active = torch.ones(lanes.shape[0], dtype=torch.bool, device=o.device)
     hit_c = torch.zeros_like(active)
     thit_c = torch.full_like(t, float("inf"))
     for j in range(cap):
         if j % SYNC_EVERY == 0 and not bool(active.any()):
             break
-        s, v = _sample_s(pack9, res, b0, span, thr, o + d * t[:, None])
+        s, v = _sample_s(pack9, res, b0, span, thr, o + d * t[:, None], row0)
         found = active & (s < 0)
         thit_c = torch.where(found, t, thit_c)
         hit_c = hit_c | found
@@ -239,13 +256,13 @@ def _march(pack9, res, bbox, thr, h, vox, o, d, t0, tfar, active0, refine, cap=5
         t = torch.where(active & ~found, t + step, t)
         active = active & ~found & (t < tfar)
     if refine:
-        thit_c = _refine(pack9, res, b0, span, thr, h, o, d, hit_c, thit_c)
+        thit_c = _refine(pack9, res, b0, span, thr, h, o, d, hit_c, thit_c, row0)
     hit[lanes] = hit_c
     thit[lanes] = thit_c
     return hit, thit
 
 
-def _refine(pack, res, b0, span, thr, h, o, d, hit, thit, K2=8):
+def _refine(pack, res, b0, span, thr, h, o, d, hit, thit, row0, K2=8):
     """Localize the crossing inside (thit - h, thit] with one K2-row gather,
     then interpolate linearly between the bracketing samples (in place of
     the reference's 20-step bisection, renderer.py:274-279)."""
@@ -253,7 +270,9 @@ def _refine(pack, res, b0, span, thr, h, o, d, hit, thit, K2=8):
     base = torch.clamp(thit - h, min=0.0)
     ts = base[:, None] + dh * torch.arange(1, K2 + 1, dtype=F32, device=o.device)[None, :]
     pk = o[:, None, :] + d[:, None, :] * ts[..., None]
-    s, _ = _sample_s(pack, res, b0, span, thr, pk)               # (R, K2)
+    if b0.dim() == 2:  # each ray's own box and rows
+        b0, span, row0 = b0[:, None], span[:, None], row0[:, None]
+    s, _ = _sample_s(pack, res, b0, span, thr, pk, row0)        # (R, K2)
     neg = s < 0
     kf = torch.argmax(neg.to(torch.uint8), dim=1)
     any_neg = neg.any(dim=1)
@@ -309,19 +328,23 @@ class Renderer:
     # voxelization (reference build_sdf_from_particles :100-131)
     # ------------------------------------------------------------------
     def packed_volume(self, x, color, bbox0):
-        """The voxelizer's packed volume (prod(voxel_res),) int32 of the
-        particles x (float32) in the volume whose low corner is bbox0."""
-        p = ((x - bbox0) * self.inv_dx).contiguous()  # voxel coords
+        """The voxelizer's packed volume, int32, of the particles x (float32)
+        in the volume whose low corner is bbox0: (prod(voxel_res),) for one
+        env's x (n, 3) and bbox0 (3,); (B, prod(voxel_res)) for B envs' x
+        (B, n, 3) and bbox0 (B, 3), in one launch."""
+        p = ((x - bbox0.unsqueeze(-2)) * self.inv_dx).contiguous()  # voxel coords
         return self.voxelize(p, color, self.voxel_res, self.bake_size, self.dist_scale)
 
     def _voxelize_impl(self, x, color, bbox0):
+        """-> (sdf (B, N), colour (B, N, 3)) float32, N = prod(voxel_res);
+        B = 1 for one env's x (n, 3)."""
         res = self.voxel_res
-        volume = self.packed_volume(x, color, bbox0)
+        volume = self.packed_volume(x, color, bbox0).reshape(-1, int(np.prod(res)))
         sdf = ((volume >> 24) & 255).to(F32) * (1.0 / 255.0)
         col = torch.stack([(volume >> 16) & 255, (volume >> 8) & 255, volume & 255],
                           dim=-1).to(F32) * (1.0 / 255.0)
-        sdf = _smooth27(_smooth27(sdf.reshape(res)))
-        return sdf.reshape(-1), col.reshape(-1, 3)
+        sdf = _smooth27(_smooth27(sdf.reshape(-1, *res)))
+        return sdf.reshape(sdf.shape[0], -1), col
 
     # ------------------------------------------------------------------
     def set_target_density(self, target_density: Optional[np.ndarray]):
@@ -343,75 +366,93 @@ class Renderer:
                     raise ValueError(f"goal grid {G}^3 does not divide {self.target_res}")
                 for ax in range(3):
                     raw = torch.repeat_interleave(raw, reps, dim=ax)
-            self.target_density = _smooth27(3.0 - raw.reshape(self.target_res))
+            self.target_density = _smooth27((3.0 - raw.reshape(self.target_res))[None])[0]
         # static per scene: packed once here, not per frame
         self._tgt_packed = self._pack_target(self.target_density)
 
     def _pack9(self, t3, threshold):
-        """((N, 9) bf16 rows: 8 corners + the cell distance; (2, 3) tight
-        near-set bounds in voxel units)."""
+        """Per env of t3 (B, X, Y, Z): ((B*N, 9) bf16 rows: 8 corners + the
+        cell distance; (B, 2, 3) tight near-set bounds in voxel units)."""
         pack = _pack_corners(t3)
         dist, near = _cell_distance_field(t3, threshold)
         lo, hi = _near_bounds(near)
         return (torch.cat([pack, dist.reshape(-1, 1).to(torch.bfloat16)], dim=-1),
-                torch.stack([lo, hi]))
+                torch.stack([lo, hi], dim=1))
 
-    def _pack_main(self, sdf_flat, col_flat):
+    def _pack_main(self, sdf, col):
+        """sdf (B, N), col (B, N, 3) -> (sdf rows (B*N, 9), tight (B, 2, 3),
+        colour rows (B*N, 8, 3))."""
         res = self.voxel_res
-        sdf_pack, sdf_tight = self._pack9(sdf_flat.reshape(res), self.sdf_threshold)
-        col_pack = torch.stack([_pack_corners(col_flat[:, c].reshape(res)) for c in range(3)],
+        sdf_pack, sdf_tight = self._pack9(sdf.reshape(-1, *res), self.sdf_threshold)
+        col_pack = torch.stack([_pack_corners(col[..., c].reshape(-1, *res)) for c in range(3)],
                                dim=-1)
         return sdf_pack, sdf_tight, col_pack
 
     def _pack_target(self, tgt3):
-        return self._pack9(tgt3, 0.0)
+        pack, tight = self._pack9(tgt3[None], 0.0)
+        return pack, tight[0]
 
     # ------------------------------------------------------------------
     def frame_bbox(self, x, host_bbox=True):
-        """(2, 3) float32 corners of the voxel volume around the particles x
-        (float32 on the renderer's device), flooring float32 products as the
-        reference package does (reference initialize_particles_kernel +
-        set_particles). host_bbox: its frame path (upper corner summed in
-        float64, and the check that the cloud fits the volume); else its
-        in-graph observation path (upper corner in float32, no check: the
-        observation grid keeps the frame grid's physical coverage)."""
-        lower = (torch.floor(x.amin(dim=0) * self.inv_dx) - 6.0) * self.dx
+        """Corners of the voxel volume around the particles x (float32 on
+        the renderer's device): (2, 3) for one env's x (n, 3), (B, 2, 3) for
+        x (B, n, 3); flooring float32 products as the reference package does
+        (reference initialize_particles_kernel + set_particles). host_bbox:
+        its frame path (upper corner summed in float64, and the check that
+        the cloud fits the volume); else its in-graph observation path
+        (upper corner in float32, no check and no host sync: the observation
+        grid keeps the frame grid's physical coverage)."""
+        lower = (torch.floor(x.amin(dim=-2) * self.inv_dx) - 6.0) * self.dx
         if host_bbox:
-            desired = (torch.floor(x.amax(dim=0) * self.inv_dx) - 6.0) * self.dx - lower
-            for a, b in zip((desired / self.dx).tolist(), self.voxel_res):
+            desired = (torch.floor(x.amax(dim=-2) * self.inv_dx) - 6.0) * self.dx - lower
+            for a, b in zip((desired / self.dx).reshape(-1, 3).amax(dim=0).tolist(),
+                            self.voxel_res):
                 if not a < b:
                     raise ValueError(f"the sdf should be smaller {a} < {b}")
             upper = (lower.double() + self._t(self.voxel_res, torch.float64) * self.dx).to(F32)
         else:
             upper = lower + self._t(self.voxel_res) * self.dx
-        return torch.stack([lower, upper])
+        return torch.stack([lower, upper], dim=-2)
 
-    def _prepare_textures(self, x, colors, prim_pos, prim_rot, prim_gap, host_bbox=True):
-        """Voxelize the particles and assemble the per-frame texture tuple
-        (sdf_pack, sdf_tight, col_pack, bbox, tgt_pack, tgt_tight, poses);
-        host_bbox as in `frame_bbox`."""
+    def _textures(self, x, colors, prim_pos, prim_rot, prim_gap, host_bbox=True):
+        """Voxelize the particles and assemble the texture tuple (sdf_pack,
+        sdf_tight, col_pack, bbox, tgt_pack, tgt_tight, poses) of B envs: x
+        (B, n, 3) with poses (B, k, 3), (B, k, 4), (B, k), or one env's x
+        (n, 3) and poses (B = 1); colours (n,) shared. sdf_tight and bbox are
+        (B, 2, 3), the poses (B, k, ...), env b's rows of sdf_pack and
+        col_pack start at b * prod(voxel_res); the goal's textures are
+        shared. host_bbox as in `frame_bbox`."""
         dev = self.device
         x = torch.as_tensor(x, device=dev).to(F32)
         bbox = self.frame_bbox(x, host_bbox)
         colors = torch.as_tensor(colors, device=dev).to(torch.int32).contiguous()
-        sdf_flat, col_flat = self._voxelize_impl(x, colors, bbox[0])
-        sdf_pack, sdf_tight, col_pack = self._pack_main(sdf_flat, col_flat)
+        sdf, col = self._voxelize_impl(x, colors, bbox[..., 0, :])
+        sdf_pack, sdf_tight, col_pack = self._pack_main(sdf, col)
         tgt_pack, tgt_tight = self._tgt_packed
-        poses = tuple(torch.as_tensor(t, device=dev).to(F32)
-                      for t in (prim_pos, prim_rot, prim_gap))
-        return sdf_pack, sdf_tight, col_pack, bbox, tgt_pack, tgt_tight, poses
+        B, k = sdf.shape[0], len(self.scene.primitives)
+        poses = tuple(torch.as_tensor(t, device=dev).to(F32).reshape(B, k, *tail)
+                      for t, tail in ((prim_pos, (3,)), (prim_rot, (4,)), (prim_gap, ())))
+        return sdf_pack, sdf_tight, col_pack, bbox.reshape(B, 2, 3), tgt_pack, tgt_tight, poses
+
+    def _prepare_textures(self, x, colors, prim_pos, prim_rot, prim_gap, host_bbox=True):
+        """`_textures` in the rank of x: one env's (x (n, 3)) without the env
+        axis, as the reference package's."""
+        t = self._textures(x, colors, prim_pos, prim_rot, prim_gap, host_bbox)
+        if np.ndim(x) == 3:
+            return t
+        return t[0], t[1][0], t[2], t[3][0], t[4], t[5], tuple(a[0] for a in t[6])
 
     # ------------------------------------------------------------------
     # the tracer: next_hit and occluded (reference next_hit :202-325)
     # ------------------------------------------------------------------
-    def _packed_normal(self, pack, pres, b0, span, pos):
+    def _packed_normal(self, pack, pres, b0, span, pos, row0=None):
         """Normal from the analytic trilinear gradient of the corner rows."""
-        v, fx = _corner_rows(pack, pres, (pos - b0) / span)
+        v, fx = _corner_rows(pack, pres, (pos - b0) / span, row0)
         g = _trilerp_grad(v[..., :8], fx)
         return g / (_norm(g, keepdim=True) + 1e-12)
 
-    def _packed_color(self, col_pack, b0, span, pos):
-        v, fx = _corner_rows(col_pack, self.voxel_res, (pos - b0) / span)  # (..., 8, 3)
+    def _packed_color(self, col_pack, b0, span, pos, row0):
+        v, fx = _corner_rows(col_pack, self.voxel_res, (pos - b0) / span, row0)  # (..., 8, 3)
         w0, w1, w2 = _axis_weights(fx)
         return torch.sum(v * (w0 * w1 * w2)[..., None], dim=-2)
 
@@ -423,9 +464,9 @@ class Renderer:
         return base * torch.where(inbox, checker, 0.4)[..., None]
 
     def _prim_sdf_all(self, poses, pp):
-        """min over primitives and its argmin."""
+        """min over primitives and its argmin; poses per point (L, k, ...)."""
         pos, rot, gap = poses
-        vals = [prim_mod.sdf(p, pos[i], rot[i], gap[i], pp)
+        vals = [prim_mod.sdf(p, pos[:, i], rot[:, i], gap[:, i], pp)
                 for i, p in enumerate(self.scene.primitives)]
         v, idx = torch.min(torch.stack(vals, dim=-1), dim=-1)
         return v, idx.to(torch.int32)
@@ -433,12 +474,14 @@ class Renderer:
     def _prim_bound_entry(self, poses, o, d):
         """First intersection of the ray with any primitive's bounding
         sphere (INF on a miss): the sphere trace starts there, with the
-        same hits."""
+        same hits. poses per ray (R, k, ...)."""
         pos, rot, gap = poses
         t_enter = torch.full(o.shape[:-1], INF, dtype=F32, device=o.device)
         for i, p in enumerate(self.scene.primitives):
-            rad = self._t(prim_mod.bounding_radius(p, gap[i])) + 1e-3
-            oc = o - pos[i]
+            # a tensor: a Chopsticks' radius follows each ray's env's gap
+            rad = torch.as_tensor(prim_mod.bounding_radius(p, gap[:, i]), dtype=F32,
+                                  device=o.device) + 1e-3
+            oc = o - pos[:, i]
             b = torch.sum(oc * d, dim=-1)
             c = torch.sum(oc * oc, dim=-1) - rad * rad
             disc = b * b - c
@@ -451,7 +494,8 @@ class Renderer:
 
     def _sphere_trace(self, poses, o, d, alive):
         """Primitive sphere trace, <= 200 steps from the bounding-sphere
-        entry (reference :231-259) -> (dist, sdf value, sdf id)."""
+        entry (reference :231-259) -> (dist, sdf value, sdf id); poses per
+        ray (R, k, ...)."""
         dist = self._prim_bound_entry(poses, o, d)
         R = o.shape[0]
         sdf_val = torch.full((R,), INF, dtype=F32, device=o.device)
@@ -461,6 +505,7 @@ class Renderer:
             return dist, sdf_val, sdf_id
         oc, dc, t = o[lanes], d[lanes], dist[lanes]
         val, sid = sdf_val[lanes], sdf_id[lanes]
+        poses = tuple(a[lanes] for a in poses)
         active = torch.ones(lanes.shape[0], dtype=torch.bool, device=o.device)
         for j in range(200):
             if j % SYNC_EVERY == 0 and not bool(active.any()):
@@ -473,16 +518,17 @@ class Renderer:
         dist[lanes], sdf_val[lanes], sdf_id[lanes] = t, val, sid
         return dist, sdf_val, sdf_id
 
-    def _march_shape(self, textures, o, d, active, refine):
+    def _march_shape(self, textures, env, o, d, active, refine):
         """The plasticine SDF march (reference :263-289) over the rays in
-        active, clipped to the near-cell bounds -> (hit, t_hit)."""
+        active, each in its env's texture, clipped to that env's near-cell
+        bounds -> (hit, t_hit)."""
         sdf_pack, sdf_tight, _, bbox = textures[:4]
-        span = bbox[1] - bbox[0]
+        span = bbox[:, 1] - bbox[:, 0]
         inv_res = 1.0 / self._t(self.voxel_res)
-        lo, hi = (bbox[0] + sdf_tight[i] * inv_res * span for i in (0, 1))
-        isect, tnear, tfar = _ray_aabb(lo, hi, o, d)
+        lo, hi = (bbox[:, 0] + sdf_tight[:, i] * inv_res * span for i in (0, 1))
+        isect, tnear, tfar = _ray_aabb(lo[env], hi[env], o, d)
         return _march(sdf_pack, self.voxel_res, bbox, self.sdf_threshold, 0.01, self.dx, o, d,
-                      torch.clamp(tnear, min=0.0) + 1e-4, tfar, isect & active, refine)
+                      torch.clamp(tnear, min=0.0) + 1e-4, tfar, isect & active, refine, env)
 
     def _march_ghost(self, textures, o, d, active, refine):
         """The goal-density ghost's march (reference :292-323) on the goal
@@ -497,9 +543,10 @@ class Renderer:
     def _unit_box(self):
         return self._t([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0]])
 
-    def next_hit(self, textures, o, d, alive, flags):
-        """Closest hit along each ray -> (closest, normal, color,
-        roughness). flags: (shape, primitive, target) on or off."""
+    def next_hit(self, textures, env, o, d, alive, flags):
+        """Closest hit along each ray, in its env env (R,) of the textures
+        -> (closest, normal, color, roughness). flags: (shape, primitive,
+        target) on or off."""
         shape_flag, prim_flag, target_flag = flags
         sdf_pack, _, col_pack, bbox, tgt_pack, _, poses = textures
         R = o.shape[0]
@@ -527,6 +574,7 @@ class Renderer:
         roughness = torch.where(hit, 0.0, roughness)
 
         if prim_flag and len(self.scene.primitives) > 0:
+            poses = tuple(a[env] for a in poses)
             dist, _, sdf_id = self._sphere_trace(poses, o, d, alive)
             hit = alive & (dist < closest) & (dist < DIST_LIMIT)
             pp = o + dist[:, None] * d
@@ -535,7 +583,8 @@ class Renderer:
             pc = torch.zeros_like(color)
             for i, p in enumerate(self.scene.primitives):
                 sel = (sdf_id == i)[:, None]
-                pn = torch.where(sel, prim_mod.normal(p, pos[i], rot[i], gap[i], pp), pn)
+                pn = torch.where(sel, prim_mod.normal(p, pos[:, i], rot[:, i], gap[:, i], pp),
+                                 pn)
                 pc = torch.where(sel, self._t(p.color), pc)
             closest = torch.where(hit, dist, closest)
             normal = torch.where(hit[:, None], pn, normal)
@@ -543,14 +592,16 @@ class Renderer:
             roughness = torch.where(hit, 0.0, roughness)
 
         if shape_flag:
-            hitm, tstar = self._march_shape(textures, o, d, alive, refine=True)
+            hitm, tstar = self._march_shape(textures, env, o, d, alive, refine=True)
             hit = hitm & (tstar < closest)
             lanes = hit.nonzero().squeeze(1)
             pos_h = o[lanes] + d[lanes] * tstar[lanes, None]
-            b0, span = bbox[0], bbox[1] - bbox[0]
+            box = bbox[env[lanes]]
+            b0, span = box[:, 0], box[:, 1] - box[:, 0]
+            row0 = env[lanes].to(torch.int32) * int(np.prod(self.voxel_res))
             closest = torch.where(hit, tstar, closest)
-            normal[lanes] = self._packed_normal(sdf_pack, self.voxel_res, b0, span, pos_h)
-            color[lanes] = self._packed_color(col_pack, b0, span, pos_h)
+            normal[lanes] = self._packed_normal(sdf_pack, self.voxel_res, b0, span, pos_h, row0)
+            color[lanes] = self._packed_color(col_pack, b0, span, pos_h, row0)
 
         if target_flag:
             hitt, tstar = self._march_ghost(textures, o, d, alive, refine=True)
@@ -565,7 +616,7 @@ class Renderer:
 
         return closest, normal, color, roughness
 
-    def occluded(self, textures, o, d, alive, flags):
+    def occluded(self, textures, env, o, d, alive, flags):
         """Anything of next_hit's geometry within DIST_LIMIT along d? An
         occlusion-only march (no refinement, normals or colours): the shadow
         test (reference :398-400)."""
@@ -577,11 +628,11 @@ class Renderer:
         occ = occ | ((d[:, 1] < 0) & (gd < DIST_LIMIT))
 
         if prim_flag and len(self.scene.primitives) > 0:
-            dist, _, _ = self._sphere_trace(poses, o, d, alive & ~occ)
+            dist, _, _ = self._sphere_trace(tuple(a[env] for a in poses), o, d, alive & ~occ)
             occ = occ | (alive & (dist < DIST_LIMIT))
 
         if shape_flag:
-            occ = occ | self._march_shape(textures, o, d, alive & ~occ, refine=False)[0]
+            occ = occ | self._march_shape(textures, env, o, d, alive & ~occ, refine=False)[0]
         if target_flag:
             occ = occ | self._march_ghost(textures, o, d, alive & ~occ, refine=False)[0]
         return occ
@@ -619,13 +670,13 @@ class Renderer:
         light = coeff * self._t([0.9, 0.9, 0.9]) + (1 - coeff) * self._t([0.7, 0.7, 0.8])
         return light * 1.5
 
-    def trace(self, textures, pos, d, flags):
+    def trace(self, textures, env, pos, d, flags):
         R = pos.shape[0]
         contrib = torch.zeros((R, 3), dtype=F32, device=pos.device)
         throughput = torch.ones((R, 3), dtype=F32, device=pos.device)
         alive = torch.ones(R, dtype=torch.bool, device=pos.device)  # has not hit the sky
         for _ in range(self.max_ray_depth):
-            closest, normal, c, roughness = self.next_hit(textures, pos, d, alive, flags)
+            closest, normal, c, roughness = self.next_hit(textures, env, pos, d, alive, flags)
             hit_pos = pos + closest[:, None] * d
             step_alive = alive & (_norm(normal) != 0)
 
@@ -643,7 +694,7 @@ class Renderer:
                 direct = self._t(self.light_direction) + noise
                 direct = direct / _norm(direct, keepdim=True)
                 dot = torch.sum(direct * normal, dim=-1)
-                occ = self.occluded(textures, pos, direct, step_alive & (dot > 0), flags)
+                occ = self.occluded(textures, env, pos, direct, step_alive & (dot > 0), flags)
                 lit = step_alive & (dot > 0) & ~occ
                 contrib = contrib + torch.where(
                     lit[:, None], throughput * self._t(LIGHT_COLOR) * dot[:, None], 0.0)
@@ -654,13 +705,15 @@ class Renderer:
         return throughput * self.sky_color(d)
 
     def render_pass(self, textures, flags, S):
-        """S full-image samples in one flat (S*W*H)-ray pass -> (W, H, 3)
-        sum over the samples; draws the pixel jitter x, then y, then the
-        trace's."""
+        """S full-image samples of each of the textures' B envs in one flat
+        (B*S*W*H)-ray pass, env-major -> (B, W, H, 3) sums over the samples;
+        draws the pixel jitter x (B*S, W, H), then y, then the trace's
+        (B*S*W*H,): env b's part of each draw is what its own pass draws."""
+        B = textures[3].shape[0]
         W, H = self.image_res
         dev = self.device
-        ux = torch.arange(W, dtype=F32, device=dev)[None, :, None] + self.uniform((S, W, H))
-        vx = torch.arange(H, dtype=F32, device=dev)[None, None, :] + self.uniform((S, W, H))
+        ux = torch.arange(W, dtype=F32, device=dev)[None, :, None] + self.uniform((B * S, W, H))
+        vx = torch.arange(H, dtype=F32, device=dev)[None, None, :] + self.uniform((B * S, W, H))
         dx_ = 2 * FOV * ux / H - FOV * self.aspect_ratio - 1e-5
         dy_ = 2 * FOV * vx / H - FOV - 1e-5
         d = torch.stack([dx_, dy_, -torch.ones_like(dx_)], dim=-1)
@@ -669,9 +722,10 @@ class Renderer:
         rot_y = np.array([[np.cos(r1), 0, np.sin(r1)], [0, 1, 0], [-np.sin(r1), 0, np.cos(r1)]])
         rot_x = np.array([[1, 0, 0], [0, np.cos(r0), np.sin(r0)], [0, -np.sin(r0), np.cos(r0)]])
         d = d @ self._t(rot_y @ rot_x).T
-        o = self._t(self.camera_pos).expand(S * W * H, 3)
-        out = self.trace(textures, o, d.reshape(-1, 3), flags)
-        return torch.sum(out.reshape(S, W, H, 3), dim=0)
+        o = self._t(self.camera_pos).expand(B * S * W * H, 3)
+        env = torch.arange(B, device=dev).repeat_interleave(S * W * H)
+        out = self.trace(textures, env, o, d.reshape(-1, 3), flags)
+        return torch.sum(out.reshape(B, S, W, H, 3), dim=1)
 
     def _darken(self):
         """Vignette factor (W, H, 1)."""
@@ -683,22 +737,25 @@ class Renderer:
         return self._t(darken[..., None])
 
     def _tone_map(self, buf, spp):
-        """(W, H, 3) sample sum -> (H, W, 3) image in [0, ~1] (reference copy
-        :414-426), in the opencv orientation."""
+        """(B, W, H, 3) sample sums -> (B, H, W, 3) images in [0, ~1]
+        (reference copy :414-426), in the opencv orientation."""
         img = torch.sqrt(buf * self._darken() * EXPOSURE / spp)
-        return img.flip(1).permute(1, 0, 2)
+        return img.flip(2).permute(0, 2, 1, 3)
 
     def build_obs_fn(self, spp=None):
-        """f(x, colors, prim_pos, prim_rot, prim_gap) -> (H, W, 3) float32
-        tensor in [0, ~1]: the low-resolution observation render for visual
-        RL, render_frame with the goal ghost off and all spp samples in one
-        pass."""
+        """f(x, colors, prim_pos, prim_rot, prim_gap) -> float32 tensor in
+        [0, ~1]: the low-resolution observation render for visual RL,
+        render_frame with the goal ghost off and all spp samples in one
+        pass. One env: x (n, 3), poses (k, 3), (k, 4), (k,) -> (H, W, 3).
+        B envs: x (B, n, 3), colours (n,) shared, poses (B, k, ...) ->
+        (B, H, W, 3), all envs in one voxelizer launch and one march (the
+        TPU package vmaps this function over the envs)."""
         spp = self.spp if spp is None else spp
 
         def obs_fn(x, colors, prim_pos, prim_rot, prim_gap):
-            textures = self._prepare_textures(x, colors, prim_pos, prim_rot, prim_gap,
-                                              host_bbox=False)
-            return self._tone_map(self.render_pass(textures, (True, True, False), spp), spp)
+            textures = self._textures(x, colors, prim_pos, prim_rot, prim_gap, host_bbox=False)
+            img = self._tone_map(self.render_pass(textures, (True, True, False), spp), spp)
+            return img if np.ndim(x) == 3 else img[0]
 
         return obs_fn
 
@@ -707,11 +764,12 @@ class Renderer:
         numpy arrays. Test and debug hook for pinning hit structure."""
         flags = (bool(kwargs.get("shape", 1)), bool(kwargs.get("primitive", 1)),
                  bool(kwargs.get("target", 0)))
-        textures = self._prepare_textures(x, colors, prim_pos, prim_rot, prim_gap)
+        textures = self._textures(x, colors, prim_pos, prim_rot, prim_gap)
         o = torch.as_tensor(np.asarray(o, np.float32), device=self.device)
         d = torch.as_tensor(np.asarray(d, np.float32), device=self.device)
         alive = torch.ones(o.shape[0], dtype=torch.bool, device=self.device)
-        closest, normal, color, _ = self.next_hit(textures, o, d, alive, flags)
+        env = torch.zeros(o.shape[0], dtype=torch.int64, device=self.device)
+        closest, normal, color, _ = self.next_hit(textures, env, o, d, alive, flags)
         return tuple(t.cpu().numpy() for t in (closest, normal, color))
 
     def render_frame(self, x, colors, prim_pos, prim_rot, prim_gap, spp=None, **kwargs):
@@ -722,10 +780,10 @@ class Renderer:
         shape_flag = bool(kwargs.get("shape", 1))
         prim_flag = bool(kwargs.get("primitive", 1))
         n_ghost = (spp // 2) if int(kwargs.get("target", 0)) else 0
-        textures = self._prepare_textures(x, colors, prim_pos, prim_rot, prim_gap)
+        textures = self._textures(x, colors, prim_pos, prim_rot, prim_gap)
         W, H = self.image_res
         max_lanes = W * H if W * H >= 256 * 256 else LANE_CAP
-        buf = torch.zeros((W, H, 3), dtype=F32, device=self.device)
+        buf = torch.zeros((1, W, H, 3), dtype=F32, device=self.device)
         for tflag, n in ((False, spp - n_ghost), (True, n_ghost)):
             if n == 0:
                 continue
@@ -735,4 +793,4 @@ class Renderer:
             for _ in range(n // S):
                 acc = acc + self.render_pass(textures, (shape_flag, prim_flag, tflag), S)
             buf += acc
-        return self._tone_map(buf, spp).cpu().numpy()
+        return self._tone_map(buf, spp)[0].cpu().numpy()

@@ -1,6 +1,7 @@
 """The port's entry points take the reference's parameters in its order:
-`make(env_name, nn=False, sdf_loss=10, ...)` and `PhysicsEnv(scene, nn=False,
-loss=True)`, with the port's `device` keyword only. `nn` is passed down and
+`make(env_name, nn=False, sdf_loss=10, ...)`, `PhysicsEnv(scene, nn=False,
+loss=True)` and `VecPlasticineEnv(env_name, batch, seed=0, jitter=1e-3,
+mesh=None, ...)`, with the port's `device` keyword only. `nn` is passed down and
 changes nothing, as in the reference (`plasticinelab_tpu/engine/sim.py`: the
 env sets `self.nn = None` and a caller attaches a policy later);
 `loss=False` skips the goal and the loss state. On the CPU, on
@@ -13,9 +14,11 @@ import torch
 
 from plasticinelab_tpu.engine.sim import PhysicsEnv as JaxPhysicsEnv
 from plasticinelab_tpu.envs import make as jax_make
+from plasticinelab_tpu.parallel.rollout import VecPlasticineEnv as JaxVecPlasticineEnv
 from plasticinelab_tpu_torch.config import spec as tspec
 from plasticinelab_tpu_torch.engine.sim import PhysicsEnv
 from plasticinelab_tpu_torch.envs import make
+from plasticinelab_tpu_torch.parallel import VecPlasticineEnv
 from test_torch_visual_obs import _tiny_scene
 
 
@@ -26,8 +29,9 @@ def _positional(fn):
 
 
 @pytest.mark.parametrize("port,ref", [(make, jax_make),
-                                      (PhysicsEnv.__init__, JaxPhysicsEnv.__init__)],
-                         ids=["make", "PhysicsEnv"])
+                                      (PhysicsEnv.__init__, JaxPhysicsEnv.__init__),
+                                      (VecPlasticineEnv.__init__, JaxVecPlasticineEnv.__init__)],
+                         ids=["make", "PhysicsEnv", "VecPlasticineEnv"])
 def test_positional_parameters_are_the_references(port, ref):
     assert _positional(port) == _positional(ref)
     device = inspect.signature(port).parameters["device"]

@@ -13,8 +13,8 @@ component (1.4e-5 of the largest velocity, 1.28) after 3 steps.
 
 Also the semantics of tests/test_vec_rollout.py on the port alone: shapes,
 decorrelated jittered envs, entry 0 equal to the port's single-env reward
-and incremental IoU, seeded starts, the default device, and the rgb mode
-that is not ported."""
+and incremental IoU, seeded starts and the default device. The rgb mode:
+tests/test_torch_vec_rgb.py."""
 import inspect
 
 import numpy as np
@@ -174,13 +174,6 @@ def test_seeded_starts():
 
 def test_vec_env_runs_on_the_card_by_default():
     assert inspect.signature(VecPlasticineEnv).parameters["device"].default == "cuda"
-
-
-def test_rgb_observations_are_not_ported():
-    scene, particles, target = _tiny(tspec)
-    with pytest.raises(NotImplementedError, match="A12"):
-        VecPlasticineEnv(None, batch=2, scene=scene, target_density=target,
-                         particles=particles, obs_mode="rgb", device="cpu")
 
 
 def test_vec_env_from_task_name():

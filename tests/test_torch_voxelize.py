@@ -88,6 +88,52 @@ def test_offset_table_counts():
     assert len(cuda_voxelize.offsets(3, 0.2 * (2 / 150) * 150.0)) == 160
 
 
+def test_launch_shape_picks_the_mode_from_the_launch_size():
+    """Move-v1's 10,000 particles on a card of 132 SMs: one env goes to the
+    volume directly, 8 chunks a warp; from B = 7 (two sorted chunks of 256
+    an SM) the launch sorts by coarse cell and privatises each chunk; the
+    coarse cells are under 16 a side at both grids."""
+    assert cuda_voxelize.launch_shape((84, 84, 84), 10_000, 1, 132) == (False, 3, 8)
+    assert cuda_voxelize.launch_shape((84, 84, 84), 10_000, 6, 132)[0] is False
+    assert cuda_voxelize.launch_shape((84, 84, 84), 10_000, 7, 132) == (True, 3, 256)
+    assert cuda_voxelize.launch_shape((84, 84, 84), 10_000, 32, 132) == (True, 3, 256)
+    assert cuda_voxelize.launch_shape((168, 168, 168), 10_000, 1, 132) == (False, 4, 8)
+    assert cuda_voxelize.launch_shape((40, 48, 40), 5, 1, 132)[1] == 2
+
+
+@pytest.mark.parametrize("batch", [None, 3], ids=["one_env", "B_envs"])
+def test_launch_passes_its_signature(monkeypatch, batch):
+    """The wrapper hands the C entry point what `cuda_build._SIGNATURES`
+    declares, through ctypes' own conversion of each argument, with the
+    volume and scratch it allocates, and counts the launch under
+    `voxelize` for particles (n, 3), `voxelize_batched` for (B, n, 3)."""
+    import ctypes
+
+    from plasticinelab_tpu_torch.engine import cuda_build
+
+    calls = []
+    proto = ctypes.CFUNCTYPE(ctypes.c_int, *cuda_build._SIGNATURES["plb_voxelize"])
+    entry = proto(lambda *args: calls.append(args) or 0)
+    # a CPU tensor's device has no index: the card's ordinal is 0 here
+    lib = type("Lib", (), {"plb_voxelize": staticmethod(
+        lambda *args: entry(*(0 if a is None else a for a in args)))})
+    monkeypatch.setattr(cuda_build, "library", lambda: lib)
+    monkeypatch.setattr(cuda_build, "require_kernel_input", lambda t, name: None)
+    monkeypatch.setattr(cuda_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(cuda_voxelize, "_sms", lambda device: 132)
+    p = torch.rand((batch or 1, 50, 3)) * 40
+    p = p if batch else p[0]
+    cuda_voxelize.reset_launches()
+    vol = cuda_voxelize._launch(p, torch.zeros(50, dtype=torch.int32), (40, 44, 36), 3, 0.4)
+    offs = cuda_voxelize.offsets(3, 0.4)
+    (args,) = calls
+    assert args[0] == p.data_ptr()
+    assert args[6:17] == (50, batch or 1, len(offs), 40, 44, 36, offs.min(), offs.max(), 0, 2, 8)
+    assert vol.shape == ((batch, 40 * 44 * 36) if batch else (40 * 44 * 36,))
+    assert cuda_voxelize.launches == {"voxelize": 0 if batch else 1,
+                                      "voxelize_batched": 1 if batch else 0}
+
+
 def test_wrapper_checks_its_inputs():
     """Shapes are checked; the launch path takes CUDA tensors only (no
     fallback to the plain version there)."""
