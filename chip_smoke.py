@@ -45,6 +45,15 @@ Phases, each fatal on failure:
    actions, whose launch counts prove it ran through the backward kernels,
    timed, with its peak memory and remat policy;
 8. solve: `Solver.solve_device`, 3 Adam iterations on Move-v1, horizon 50;
+   nn gradient: the default `MLPPolicy` (init_params(0)) acting inside 2
+   Move-v1 steps, d loss / d params through the kernels against the plain
+   versions, and the loss, each layer's gradient norm and 16 entries
+   against values computed by the reference package (launch counts: 38 of
+   each substep backward kernel, 2 of K7's); nn solve:
+   `SolverNN.solve_device`, 3 Adam iterations, horizon 50 (950 launches of
+   each substep backward kernel an iteration), iteration 0 against a direct
+   rollout, seconds per iteration, remat, peak memory, a 5-step replay with
+   `policy.act`;
 9. voxelize kernel: K9 against its plain version at Move-v1 shapes (the
    task's initial 10,000-particle cloud), at the frame's 168^3 grid
    (dist_scale 0.2) and the observation's 84^3 grid (0.4), bit for bit,
@@ -83,7 +92,15 @@ Phases, each fatal on failure:
    K9-b launch per batched step and one at reset, 51 whatever B, and no
    single-env K9 launch); at B = 8, each env's frame against the single
    env's `render_obs` of the same state, the draws of the single renders
-   replayed into the batched one: equal uint8 frames;
+   replayed into the batched one: equal uint8 frames; then sac: one
+   `SAC.update_many_device(n=8)` of SAC(1214, 6) on the card against the
+   same on the CPU (the same weights, buffer and seam draws), `train_vec` on
+   `VecPlasticineEnv("Move-v1", batch=8)` for two 50-step horizons with
+   start_steps 64 (744 updates; env steps/s, updates/s, the host seconds of
+   collection and updates; launch counts: 19 of each batched forward kernel
+   a batched step, K7-fwd-b a step and a reset, no single-env launch), and
+   with obs_mode="rgb" for 5 steps and one update_many_device(n=8) of SAC on
+   (64, 64, 3) frames (6 K9-b launches);
 14. vec gradient: `build_batched_rollout_grad` on Move-v1 (horizon 50,
    bench.py's actions tiled over B, `batch_states(..., jitter=1e-3)`) for
    B = 1, 8 and 32: launch counts (950 of each batched substep backward
@@ -118,7 +135,8 @@ Phases, each fatal on failure:
    at 320,000 particles and the gathers once more and by CUDA events
    (L2-cold and L2-warm), the
    device's busy share in an rgb env step and a 1-spp frame, in 2 batched
-   rgb env steps at B = 1, 8 and 32, in 5 batched
+   rgb env steps at B = 1, 8 and 32, in one SAC train_vec iteration at
+   B = 32 (explore_batch, a batched step, 32 updates), in 5 batched
    env steps and in a 2-step batched gradient at B = 1 and B = 32 with the
    device operations per batched substep (B = 32 within 1.2x of B = 1: no
    per-env loop, forward or backward), after everything else (an active
@@ -295,6 +313,54 @@ VOX_BATCHES = (8, 32)  # envs of the batched voxelizer checks
 VOX_JITTER = 1e-3     # per-env noise of Move-v1's cloud there, world units
 RGB_PROFILE_STEPS = 2  # batched rgb env steps profiled per B
 SOLVE_ACTION_T = 5    # solve_action's episode length; 2 Adam iterations
+
+# The NN policy's 2-step gradient: Move-v1 from reset, the default
+# MLPPolicy (hidden (256, 256), 200 observed particles: dims (1214, 256,
+# 256, 6)) with init_params(0), softness 666: the summed loss and d loss /
+# d params (get_params order W0, b0, W1, b1, W2, b2) from the reference
+# package (its MLPPolicy and the rollout of its SolverNN,
+# `optimizer/solver_nn.py:44-57`, one jitted value_and_grad, float32, on the
+# CPU): the loss, each layer's gradient norm and largest |entry|, and 16
+# fixed entries (flat index, value): per layer its largest entry, the others
+# drawn with numpy's default_rng(0) among entries of at least 0.2 of the
+# layer's largest. The port's float32 plain versions on the CPU read within
+# 1.4e-6 of each layer's largest entry and 7.4e-7 of each norm. Bounds: the
+# loss to REF_TOL relative, a norm to REF_GRAD_TOL relative, an entry to
+# REF_GRAD_TOL of its layer's largest |entry| (float32 atomics through 38
+# substeps, as for REF_GRAD).
+NN_STEPS = 2
+REF_NN_LOSS = 26.55261993408203
+REF_NN_LAYERS = {"W0": (0.07157686493172427, 0.0013063875958323479),
+                 "b0": (0.004331694246716746, 0.0013063875958323479),
+                 "W1": (0.030193671195802685, 0.0016066281823441386),
+                 "b1": (0.010187097618848616, 0.0022692368365824223),
+                 "W2": (0.03278559472277781, 0.004311373457312584),
+                 "b2": (0.026052467106509623, 0.01568620093166828)}
+REF_NN_ENTRIES = ((150525, 0.0013063875958323479), (310280, -0.00026206934126093984),
+                  (309824, -0.0002870793978217989), (298880, 0.0004692707152571529),
+                  (310907, 0.0013063875958323479), (310963, 0.0005455004866234958),
+                  (321035, 0.0016066281823441386), (343547, 0.00036189358797855675),
+                  (320149, 0.0004991400055587292), (376615, 0.0022692368365824223),
+                  (376808, -0.0006054886616766453), (378041, -0.004311373457312584),
+                  (377859, -0.0015406595775857568), (377112, -0.001161701511591673),
+                  (378372, -0.01568620093166828), (378368, -0.006076232064515352))
+NN_SOLVE_ITERS = 3    # SolverNN.solve_device iterations, horizon HORIZON, Adam, lr 0.1
+NN_REPLAY_STEPS = 5   # policy.act steps of the replay
+# SAC: one update_many_device(n=SAC_UPDATES) of SAC(1214, 6) on the card
+# against the same on the CPU from the same weights, buffer and seam draws,
+# both float32. Bounds: the loss to SAC_LOSS_TOL relative; every parameter
+# and log_alpha to SAC_PARAM_TOL of one Adam step (lr 3e-4) absolute: Adam
+# moves a parameter by about lr whatever its gradient's size, so rounding in
+# the gradient shows as a share of a step; float32 against float64 on the CPU
+# differ by 1.1% of a step after 8 updates at these shapes.
+SAC_B = 8             # envs of the collection runs
+SAC_UPDATES = 8
+SAC_BATCH = 256
+SAC_ROWS = 2048       # transitions in the buffer of the device check
+SAC_LOSS_TOL = 1e-5
+SAC_PARAM_TOL = 0.05
+SAC_START = 64        # start_steps of the state collection run (2 horizons)
+SAC_RGB_STEPS = 5     # batched rgb steps, then one update_many_device(n=SAC_B)
 
 # The card's published peaks (H100 SXM, NVIDIA's data sheet, dense, at
 # 700 W): HBM bytes/s and float32 operations/s outside the tensor cores.
@@ -1245,6 +1311,243 @@ def phase_solve():
         f"losses {losses}, {solver.chunk_seconds[0] / SOLVE_ITERS:.4f} s per iteration")
     if len(losses) != SOLVE_ITERS or not np.isfinite(losses).all() or not np.isfinite(best).all():
         raise AssertionError("solve_device produced non-finite losses or actions")
+
+
+def phase_nn_gradient():
+    """The NN policy's 2-step Move-v1 gradient (`solver_nn.nn_value_and_grad`)
+    through the kernels against the plain versions and the reference
+    package's values; launch counts prove the kernels' backward ran."""
+    import torch
+
+    from plasticinelab_tpu_torch.engine import cuda_gridop, cuda_stress, cuda_transfer, mpm
+    from plasticinelab_tpu_torch.engine.nn import MLPPolicy
+    from plasticinelab_tpu_torch.envs import make
+    from plasticinelab_tpu_torch.optimizer.solver_nn import nn_value_and_grad
+
+    mods = (cuda_stress, cuda_transfer, cuda_gridop)
+    env = make("Move-v1", device=DEVICE)
+    env.reset()
+    te = env.unwrapped.taichi_env
+    policy = MLPPolicy(te.scene)
+    flat = torch.as_tensor(policy.get_params(policy.init_params(0, device=DEVICE)),
+                           dtype=torch.float32, device=DEVICE)
+    sub = te.scene.simulator.substeps
+    log(f"phase nn gradient: Move-v1, MLPPolicy dims {policy.dims}, init_params(0), "
+        f"{NN_STEPS} steps, kernels vs plain versions")
+    out = {}
+    for name, ops in (("plain", mpm.PLAIN_OPS), ("kernels", mpm.KERNEL_OPS)):
+        for mod in mods:
+            mod.reset_launches()
+        loss, g = nn_value_and_grad(te, policy, flat, te.state, NN_STEPS, te.softness, "none",
+                                    ops)
+        torch.cuda.synchronize()
+        out[name] = (float(loss), g.double().cpu().numpy())
+    launches = {k: v for mod in mods for k, v in mod.launches.items() if k.endswith("_bwd")}
+    (lk, gk), (lp, gp) = out["kernels"], out["plain"]
+    rel_l = abs(lk - lp) / abs(lp)
+    rel_g = float(np.abs(gk - gp).max() / np.abs(gp).max())
+    log(f"  loss kernels {lk:.9g}  plain {lp:.9g}  rel {rel_l:.3e} (bound {GRAD_TOL['loss']:.0e}); "
+        f"d/d params max diff rel {rel_g:.3e} (bound {GRAD_TOL['grad']:.0e})")
+    log(f"  backward launches (kernels): {launches}")
+    if not (np.isfinite(gk).all() and rel_l <= GRAD_TOL["loss"] and rel_g <= GRAD_TOL["grad"]):
+        raise AssertionError("kernel and plain NN gradients disagree")
+    for key in ("stress_affine_bwd", "p2g_bwd", "grid_op_bwd", "g2p_bwd", "grid_mass_bwd"):
+        want = NN_STEPS * (1 if key == "grid_mass_bwd" else sub)
+        if launches[key] != want:
+            raise AssertionError(f"{key} ran {launches[key]} times, expected {want}")
+    rel_l = abs(lk - REF_NN_LOSS) / REF_NN_LOSS
+    log(f"phase nn gradient reference: loss port {lk:.9g} reference {REF_NN_LOSS:.9g} rel "
+        f"{rel_l:.3e} (tol {REF_TOL:.0e})")
+    bad = [] if rel_l <= REF_TOL else ["loss"]
+    layers, o = {}, 0
+    for i in range(policy.n_layer):
+        for k, n in (("W", policy.dims[i + 1] * policy.dims[i]), ("b", policy.dims[i + 1])):
+            layers[f"{k}{i}"] = (o, o + n)
+            o += n
+    for name, (lo, hi) in layers.items():
+        norm, top = REF_NN_LAYERS[name]
+        got = float(np.linalg.norm(gk[lo:hi]))
+        rel = abs(got - norm) / norm
+        entries = [(i, v) for i, v in REF_NN_ENTRIES if lo <= i < hi]
+        worst = max(abs(gk[i] - v) for i, v in entries) / top
+        log(f"  {name}: |grad| port {got:.6e} reference {norm:.6e} rel {rel:.3e}; "
+            f"{len(entries)} entries, largest diff {worst:.3e} of the layer's largest |entry| "
+            f"(tol {REF_GRAD_TOL:.0e} each)")
+        if not (rel <= REF_GRAD_TOL and worst <= REF_GRAD_TOL):
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"the NN gradient disagrees with the reference package: {bad}")
+    return launches
+
+
+def phase_nn_solve():
+    """SolverNN.solve_device on Move-v1 (NN_SOLVE_ITERS Adam iterations,
+    horizon HORIZON, lr 0.1 x 0.001): launch counts, finite losses and
+    parameters, iteration 0 against a direct rollout of init_params(0),
+    seconds per iteration, remat, peak memory; then a replay of
+    NN_REPLAY_STEPS steps with policy.act."""
+    import torch
+
+    from plasticinelab_tpu_torch.engine import cuda_gridop, cuda_stress, cuda_transfer
+    from plasticinelab_tpu_torch.engine.nn import MLPPolicy
+    from plasticinelab_tpu_torch.envs import make
+    from plasticinelab_tpu_torch.optimizer.solver_nn import SolverNN, nn_rollout_losses
+
+    mods = (cuda_stress, cuda_transfer, cuda_gridop)
+    env = make("Move-v1", nn=True, device=DEVICE)
+    env.reset()
+    te = env.unwrapped.taichi_env
+    te.nn = policy = MLPPolicy(te.scene)
+    sub = te.scene.simulator.substeps
+    solver = SolverNN(te, None, None, n_iters=NN_SOLVE_ITERS, horizon=HORIZON, softness=666.0,
+                      **{"optim.lr": 0.1, "optim.type": "Adam"})
+    for mod in mods:
+        mod.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    best = solver.solve_device(chunk=NN_SOLVE_ITERS)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for mod in mods for k, v in mod.launches.items()}
+    losses = solver.iter_losses
+    secs = solver.chunk_seconds[0] / NN_SOLVE_ITERS
+    log(f"phase nn solve: SolverNN.solve_device, Adam, {NN_SOLVE_ITERS} iterations, horizon "
+        f"{HORIZON}, remat {solver.last_remat}: losses {losses}, {secs:.4f} s per iteration "
+        f"(the first included); peak device memory {peak / 2**30:.3f} GiB above "
+        f"{base / 2**30:.3f} GiB")
+    log(f"  launches: {launches}")
+    for key in ("stress_affine_bwd", "p2g_bwd", "grid_op_bwd", "g2p_bwd", "grid_mass_bwd"):
+        want = NN_SOLVE_ITERS * HORIZON * (1 if key == "grid_mass_bwd" else sub)
+        if launches[key] != want:
+            raise AssertionError(f"{key} ran {launches[key]} times, expected {want}")
+    if (len(losses) != NN_SOLVE_ITERS or not np.isfinite(losses).all()
+            or not np.isfinite(best).all()):
+        raise AssertionError("SolverNN.solve_device produced non-finite losses or parameters")
+    flat0 = torch.as_tensor(policy.get_params(policy.init_params(0, device=DEVICE)),
+                            dtype=torch.float32, device=DEVICE)
+    with torch.no_grad():
+        per_step, _ = nn_rollout_losses(te.scene, te.mats, te.loss_state, policy,
+                                        policy.unflatten(flat0), te.state, HORIZON, 666.0)
+    direct = float(per_step.sum())
+    rel = abs(losses[0] - direct) / abs(direct)
+    log(f"  iteration 0 {losses[0]:.9g} vs a direct {HORIZON}-step rollout of init_params(0) "
+        f"{direct:.9g}: rel {rel:.3e} (bound {GRAD_TOL['loss']:.0e}: atomics reorder sums)")
+    if not rel <= GRAD_TOL["loss"]:
+        raise AssertionError("the NN solve's first loss is not the rollout's")
+    te.set_copy(True)
+    ptree = policy.set_params(best, torch.float32, device=DEVICE)
+    for _ in range(NN_REPLAY_STEPS):
+        with torch.no_grad():
+            action = policy.act(ptree, te.state).cpu().numpy()
+        te.step(action)
+        info = te.compute_loss()
+        if not (np.isfinite(action).all() and np.abs(action).max() <= 1.0
+                and np.isfinite(te.get_obs()).all() and np.isfinite(info["reward"])):
+            raise AssertionError("the NN policy's replay is not finite")
+    log(f"  replay {NN_REPLAY_STEPS} steps with policy.act: last action "
+        f"{np.array2string(action, precision=4)}, reward {info['reward']:.6g}, "
+        f"incremental_iou {info['incremental_iou']:.6g}")
+    return {"launches": launches, "seconds": secs}
+
+
+def replayed(draws):
+    """A sampler that hands out `draws` (tensors) in order."""
+    it = iter(draws)
+    return lambda *_: next(it)
+
+
+def phase_sac():
+    """SAC: one update_many_device on the card against the CPU; train_vec on
+    VecPlasticineEnv("Move-v1", batch=SAC_B) for two horizons, state
+    observations, and for SAC_RGB_STEPS rgb steps; launch counts of the
+    batched forward kernels (and K9-b), rates and the host seconds split."""
+    import tempfile
+
+    import torch
+
+    from plasticinelab_tpu_torch.algorithms.common import DeviceReplayBuffer
+    from plasticinelab_tpu_torch.algorithms.sac.run_sac import train_vec
+    from plasticinelab_tpu_torch.algorithms.sac.sac import SAC
+    from plasticinelab_tpu_torch.engine import cuda_gridop, cuda_stress, cuda_transfer
+    from plasticinelab_tpu_torch.engine.renderer import cuda_voxelize
+    from plasticinelab_tpu_torch.parallel import VecPlasticineEnv
+
+    # (1) the update on the card against the CPU
+    D, A = 1214, 6
+    rng = np.random.default_rng(SEED + 20)
+    data = (rng.normal(0.5, 0.3, (SAC_ROWS, D)), rng.uniform(-1, 1, (SAC_ROWS, A)),
+            rng.normal(0.5, 0.3, (SAC_ROWS, D)), rng.standard_normal(SAC_ROWS),
+            np.zeros(SAC_ROWS))
+    idx = [rng.integers(0, SAC_ROWS, SAC_BATCH) for _ in range(SAC_UPDATES)]
+    eps = [rng.standard_normal((SAC_BATCH, A)) for _ in range(2 * SAC_UPDATES)]
+    got = {}
+    for dev in (DEVICE, "cpu"):
+        algo = SAC(D, A, seed=SEED, device=dev)
+        buf = DeviceReplayBuffer(D, A, SAC_ROWS, device=dev)
+        buf.add_batch(*data)
+        algo.indices = replayed([torch.as_tensor(i, device=dev) for i in idx])
+        algo.normal = replayed([torch.as_tensor(e, dtype=torch.float32, device=dev) for e in eps])
+        t0 = time.perf_counter()
+        loss = float(algo.update_many_device(buf, SAC_BATCH, SAC_UPDATES))
+        secs = time.perf_counter() - t0
+        params = [p.detach().cpu() for m in (algo.policy, algo.q, algo.q_target)
+                  for p in m.parameters()] + [algo.log_alpha.detach().cpu()]
+        got[dev] = (loss, params, secs, (algo, buf))
+    (lc, pc, sc, _), (lh, ph, sh, _) = got[DEVICE], got["cpu"]
+    rel = abs(lc - lh) / abs(lh)
+    worst = max(float((a - b).abs().max()) for a, b in zip(pc, ph)) / 3e-4
+    log(f"phase sac update: SAC(1214, 6) update_many_device(n={SAC_UPDATES}, batch "
+        f"{SAC_BATCH}), card vs CPU from the same weights and draws: loss {lc:.9g} vs {lh:.9g} "
+        f"rel {rel:.3e} (bound {SAC_LOSS_TOL:.0e}); parameters and log_alpha largest diff "
+        f"{worst:.3e} of an Adam step (bound {SAC_PARAM_TOL}); {sc:.4f} s on the card (first "
+        f"call), {sh:.4f} s on the CPU")
+    if not (np.isfinite(lc) and rel <= SAC_LOSS_TOL and worst <= SAC_PARAM_TOL):
+        raise AssertionError("the SAC update on the card disagrees with the CPU's")
+
+    # (2) state collection, two horizons; (3) rgb
+    mods = (cuda_stress, cuda_transfer, cuda_gridop, cuda_voxelize)
+    out = {}
+    with tempfile.TemporaryDirectory() as path:
+        for mode, steps, start in (("state", 2 * HORIZON, SAC_START),
+                                   ("rgb", SAC_RGB_STEPS, SAC_RGB_STEPS * SAC_B)):
+            venv = VecPlasticineEnv("Move-v1", batch=SAC_B, seed=SEED, horizon=HORIZON,
+                                    obs_mode=mode, device=DEVICE)
+            shape = venv.obs_shape if mode == "rgb" else venv.obs_dim
+            algo = SAC(shape, venv.action_dim, seed=SEED, device=DEVICE)
+            args = SimpleNamespace(env_name="Move-v1", seed=SEED, num_steps=steps * SAC_B,
+                                   obs_mode=mode)
+            for mod in mods:
+                mod.reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            train_vec(None, algo, path, args, venv=venv, start_steps=start)
+            peak = torch.cuda.max_memory_allocated()
+            launches = {k: v for mod in mods for k, v in mod.launches.items() if v}
+            st = algo.vec_stats
+            resets = 1 + steps // HORIZON
+            want = {"stress_affine": 19 * steps, "p2g_batched": 19 * steps,
+                    "grid_op_batched": 19 * steps, "g2p_batched": 19 * steps,
+                    "grid_mass_batched": steps + resets}
+            if mode == "rgb":
+                want["voxelize_batched"] = steps + resets
+            log(f"phase sac {mode}: train_vec, VecPlasticineEnv('Move-v1', batch={SAC_B}), "
+                f"{steps} batched steps, start_steps {start}: {st['env_steps']} env steps in "
+                f"{st['seconds']:.3f} s ({st['env_steps'] / st['seconds']:.3f} env steps/s); "
+                f"{st['updates']} updates in {st['update_s']:.3f} host s "
+                f"({st['updates'] / max(st['update_s'], 1e-9):.1f} updates/s); collection "
+                f"{st['collect_s']:.3f} host s; peak device memory {peak / 2**30:.3f} GiB")
+            log(f"  launches: {launches}")
+            if launches != want:
+                raise AssertionError(f"train_vec ({mode}) launched {launches}, expected {want}")
+            updates = SAC_B * (steps - start // SAC_B + 1)
+            finite = all(torch.isfinite(p).all() for p in algo.policy.parameters())
+            if st["updates"] != updates or not finite:
+                raise AssertionError(f"train_vec ({mode}): {st['updates']} updates "
+                                     f"(expected {updates}), finite parameters {finite}")
+            del venv, algo
+            torch.cuda.empty_cache()
+    return got[DEVICE][3]
 
 
 def phase_reference():
@@ -2417,6 +2720,8 @@ def main():
     # the backward kernels' counts come from the trajectory gradient's run
     launches.update({k: v for k, v in timed(phase_gradient).items() if k.endswith("_bwd")})
     timed(phase_solve)
+    timed(phase_nn_gradient)
+    timed(phase_nn_solve)
     results.update(timed(phase_voxelize))
     timed(phase_render_reference)
     render = timed(phase_render)
@@ -2426,6 +2731,7 @@ def main():
     launches.update({k: vec["launches"][k] for k in BATCHED_FWD})
     vec_rgb = timed(phase_vec_rgb)
     launches["voxelize_batched"] = vec_rgb["launches"][VEC_BATCHES[-1]]
+    sac = timed(phase_sac)
     vgrad = timed(phase_vec_gradient)
     results.update(timed(phase_vec_backward))
     launches.update({k: vgrad["launches"][k] for k in BATCHED_BWD})
@@ -2474,6 +2780,19 @@ def main():
             f"{ops / RGB_PROFILE_STEPS:.1f}, runtime calls "
             + ", ".join(f"{k} {v / RGB_PROFILE_STEPS:.1f}" for k, v in calls.items())
             + f"; rgb vec env steps/s {vec_rgb['sps'][B]:.3f} (unprofiled run)")
+    from plasticinelab_tpu_torch.algorithms.sac.sac import samplers
+
+    algo, buf = sac
+    algo.normal, algo.indices = samplers(DEVICE, SEED)
+    B = VEC_BATCHES[-1]
+    ve = vec["envs"][B]
+    obs = ve.reset()
+    busy, wall, share, ops, calls = vec_profile(
+        lambda: (ve.step(algo.explore_batch(obs)), algo.update_many_device(buf, SAC_BATCH, B)))
+    log(f"  one SAC train_vec iteration, B={B} (explore_batch, a batched env step, {B} "
+        f"updates of batch {SAC_BATCH}): device busy {busy:.3f} ms of {wall:.3f} ms wall, busy "
+        f"share {share:.4f}; device operations {ops}, runtime calls "
+        + ", ".join(f"{k} {v}" for k, v in calls.items()))
     per_substep = {}
     for B in (VEC_BATCHES[0], VEC_BATCHES[-1]):
         ve = vec["envs"][B]

@@ -93,8 +93,10 @@ def scene_from_dict(cfg: Dict[str, Any]) -> SceneSpec:
     )
 
 
-def load_scene(path: str) -> SceneSpec:
-    """Load a resolved task spec (.json) -> SceneSpec."""
+def load_scene(path: str, version: int = 1) -> SceneSpec:
+    """Load a resolved task spec (.json) -> SceneSpec. `version` selects a
+    variant of a YAML config in the reference; a resolved spec has its
+    variant applied, so it is ignored here as it is there for .json."""
     if not path.endswith(".json"):
         raise ValueError(f"only resolved .json task specs are supported: {path}")
     with open(path) as f:

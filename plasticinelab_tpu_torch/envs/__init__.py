@@ -42,6 +42,6 @@ def make(env_name: str, nn: bool = False, sdf_loss: float = 10,
         weight_contact=contact_loss, soft_contact=soft_contact_loss,
     )
     scene = scene.replace(env=dataclasses.replace(scene.env, loss=loss))
-    return PlasticineEnv(scene, device=device, nn=nn, cfg_path=f"{task}.yml",
-                         max_episode_steps=max_episode_steps, obs_mode=obs_mode,
-                         image_obs_res=image_obs_res, image_obs_spp=image_obs_spp)
+    return PlasticineEnv(f"{task}.yml", version, nn, scene=scene, obs_mode=obs_mode,
+                         image_obs_res=image_obs_res, image_obs_spp=image_obs_spp,
+                         device=device, max_episode_steps=max_episode_steps)

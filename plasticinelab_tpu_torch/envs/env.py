@@ -47,15 +47,22 @@ class Box:
 
 
 class PlasticineEnv:
-    def __init__(self, scene: SceneSpec, device="cuda", cfg_path: str = "",
-                 max_episode_steps: int = 50, obs_mode: str = "state",
-                 image_obs_res: int = 64, image_obs_spp: int = 2, nn: bool = False):
+    def __init__(self, cfg_path: str, version: int = 1, nn: bool = False,
+                 scene: Optional[SceneSpec] = None, obs_mode: str = "state",
+                 image_obs_res: int = 64, image_obs_spp: int = 2, *, device="cuda",
+                 max_episode_steps: int = 50):
+        """The reference's parameters in its order. With `scene` None the
+        task is read from the resolved spec `<base>-v<version>.json` of
+        `cfg_path`'s base name. device and max_episode_steps (the episode
+        limit) are keyword only."""
         if obs_mode not in ("state", "rgb"):
             raise ValueError(f"obs_mode must be 'state' or 'rgb', got {obs_mode!r}")
         self.cfg_path = cfg_path
         self.obs_mode = obs_mode
         self._image_obs_res = image_obs_res
         self._image_obs_spp = image_obs_spp
+        if scene is None:
+            scene = self._load_scene(cfg_path, version)
         self.taichi_env = PhysicsEnv(scene, nn=nn, device=device)
         self.taichi_env.initialize()
         self.taichi_env.set_copy(True)
@@ -74,6 +81,21 @@ class PlasticineEnv:
     def load_scene(name: str, version: int) -> SceneSpec:
         """Resolved task spec `<name>-v<version>.json`."""
         return load_scene(os.path.join(SPEC_DIR, f"{name}-v{version}.json"))
+
+    @staticmethod
+    def _load_scene(cfg_path: str, version: int) -> SceneSpec:
+        """The resolved spec of `cfg_path`'s task and `version`
+        (`plasticinelab_tpu/envs/env.py:60-68`). A reference-schema YAML
+        with no resolved spec is refused: reading it needs PyYAML."""
+        base = os.path.splitext(os.path.basename(cfg_path))[0]
+        cand = os.path.join(SPEC_DIR, f"{base}-v{version}.json")
+        if os.path.exists(cand):
+            return load_scene(cand)
+        if cfg_path.endswith(".json"):
+            return load_scene(cfg_path, version)
+        raise FileNotFoundError(
+            f"no resolved spec {cand} for {cfg_path!r}; the port reads resolved .json specs "
+            "only (a YAML task config needs PyYAML)")
 
     @property
     def unwrapped(self) -> "PlasticineEnv":

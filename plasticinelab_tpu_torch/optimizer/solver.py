@@ -102,7 +102,7 @@ class Solver:
         actions = optim.parameters.copy()
         for it in range(start_iter, self.cfg.n_iters):
             self.params = actions.copy()
-            with Timer() as t:
+            with Timer(f"[solver] iter {it}", print_on_exit=False) as t:
                 loss, grad = forward(env_state["state"], actions)
             self.last_iter_seconds = t.elapsed
             if loss < best_loss:

@@ -74,9 +74,22 @@ class BatchedRolloutGrad:
 
 
 def build_batched_rollout_grad(scene: SceneSpec, mats: Materials, loss_state: LossState,
+                               mesh=None, axis_name: str = "env", out_mode: str = "force", *,
                                device="cuda") -> BatchedRolloutGrad:
     """d(mean rollout loss)/d(actions) for a batch of envs of `scene` on
     `device` (`BatchedRolloutGrad`). On CUDA every substep runs the batched
     kernels and their backward kernels; on the CPU, the plain versions
-    through torch.autograd."""
+    through torch.autograd.
+
+    The reference's positional parameters: `mesh` takes only None (one
+    card; ROADMAP A15) and `axis_name` names the batch axis there. Its
+    `out_mode` only pins the output shardings ("force") or leaves them to
+    the compiler ("auto"); on one card both are the same computation, and
+    any other value is refused as it is there."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "build_batched_rollout_grad(mesh=...): the port runs on one card; a device mesh "
+            "is ROADMAP item A15")
+    if out_mode not in ("force", "auto"):
+        raise ValueError(f"out_mode must be 'force' or 'auto', got {out_mode!r}")
     return BatchedRolloutGrad(scene, mats, loss_state, device)

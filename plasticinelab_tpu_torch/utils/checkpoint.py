@@ -1,7 +1,9 @@
 """Training checkpoint / resume (counterpart of
 `plasticinelab_tpu/utils/checkpoint.py`): a pickle of nested containers
-with every tensor fetched to a host numpy array, written by atomic rename.
-Only files this program wrote should be loaded: unpickling runs code."""
+with every tensor fetched to a host numpy array, written by atomic rename;
+`load(path, device_put=True)` turns the arrays back into tensors on a
+device. Only files this program wrote should be loaded: unpickling runs
+code."""
 from __future__ import annotations
 
 import os
@@ -9,6 +11,7 @@ import pickle
 import tempfile
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 
@@ -38,9 +41,22 @@ def save(path: str, payload: Any) -> str:
     return path
 
 
-def load(path: str) -> Any:
+def _to_device(obj, device):
+    if isinstance(obj, np.ndarray):
+        return torch.as_tensor(obj, device=device)
+    if isinstance(obj, dict):
+        return {k: _to_device(v, device) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_device(v, device) for v in obj)
+    return obj
+
+
+def load(path: str, device_put: bool = False, *, device="cuda") -> Any:
+    """The saved payload; with `device_put`, its arrays as tensors on
+    `device` (the reference puts them on its default device)."""
     with open(path, "rb") as f:
-        return pickle.load(f)
+        payload = pickle.load(f)
+    return _to_device(payload, torch.device(device)) if device_put else payload
 
 
 def latest(directory: str, prefix: str = "ckpt_") -> Optional[str]:

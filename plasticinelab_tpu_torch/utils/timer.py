@@ -8,9 +8,13 @@ import time
 
 
 class Timer:
-    """`with Timer() as t: ...` leaves the block's seconds in `t.elapsed`."""
+    """`with Timer(name) as t: ...` leaves the block's seconds in
+    `t.elapsed` and, with `print_on_exit`, prints "{name}: {elapsed}s"."""
 
-    elapsed = None
+    def __init__(self, name: str = "", print_on_exit: bool = True):
+        self.name = name
+        self.print_on_exit = print_on_exit
+        self.elapsed = None
 
     def __enter__(self):
         self.start = time.perf_counter()
@@ -18,4 +22,6 @@ class Timer:
 
     def __exit__(self, *exc):
         self.elapsed = time.perf_counter() - self.start
+        if self.print_on_exit:
+            print(f"{self.name}: {self.elapsed:.6f}s")
         return False

@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: no source in `plasticinelab_tpu_torch/`
 (nor `chip_smoke.py`) mentions JAX or imports the TPU package, whose
-`__init__` imports JAX, which the GPU machines do not carry; and every port
-module has an importer (tests/test_no_orphans.py covers the TPU package)."""
+`__init__` imports JAX, which the GPU machines do not carry, nor imports
+flax or optax (the RL networks are torch modules, the optimizers
+torch.optim); and every port module has an importer
+(tests/test_no_orphans.py covers the TPU package)."""
 import os
 import re
 
@@ -14,6 +16,8 @@ SMOKE = os.path.join(ROOT, "chip_smoke.py")
 MENTIONS_JAX = re.compile(r"jax", re.IGNORECASE)
 IMPORTS_TPU_PKG = re.compile(
     r"^\s*(?:from|import)\s+plasticinelab_tpu(?:\.|\s|$)", re.MULTILINE)
+IMPORTS_FLAX_OPTAX = re.compile(r"^\s*(?:from|import)\s+(?:flax|optax)\b|"
+                                r"import_module\(\s*[\"'](?:flax|optax)", re.MULTILINE)
 
 
 def _sources(exts):
@@ -34,6 +38,12 @@ def test_no_jax_and_no_tpu_package(path):
     src = _read(path)
     assert not MENTIONS_JAX.search(src), f"{path} mentions jax"
     assert not IMPORTS_TPU_PKG.search(src), f"{path} imports plasticinelab_tpu"
+
+
+@pytest.mark.parametrize("path", [SMOKE] + _sources((".py",)),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_flax_and_no_optax(path):
+    assert not IMPORTS_FLAX_OPTAX.search(_read(path)), f"{path} imports flax or optax"
 
 
 def test_every_port_module_has_an_importer():

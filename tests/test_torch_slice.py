@@ -122,7 +122,7 @@ def tiny_env():
                             n_particles=200)
     scene = tspec.SceneSpec(simulator=sim, primitives=(prim,), shapes=(shape,),
                             env=tspec.EnvSpec(n_observed_particles=50))
-    return PlasticineEnv(scene, device="cpu", max_episode_steps=3)
+    return PlasticineEnv("tiny.yml", 1, scene=scene, device="cpu", max_episode_steps=3)
 
 
 def test_env_obs_reset_clip_and_truncation(tiny_env):

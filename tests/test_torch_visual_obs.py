@@ -39,8 +39,8 @@ def _tiny_scene(mod, dtype="float32"):
 
 @pytest.fixture(scope="module")
 def rgb_env():
-    return PlasticineEnv(_tiny_scene(tspec), device="cpu", obs_mode="rgb",
-                         image_obs_res=RES, image_obs_spp=1)
+    return PlasticineEnv("tiny.yml", 1, scene=_tiny_scene(tspec), device="cpu",
+                         obs_mode="rgb", image_obs_res=RES, image_obs_spp=1)
 
 
 def test_rgb_obs_shape_and_space(rgb_env):
@@ -111,7 +111,8 @@ def test_render_frame_entry():
 
 
 def test_solve_action_writes_one_image_per_step(tmp_path):
-    env = PlasticineEnv(_tiny_scene(tspec, "float64"), device="cpu", max_episode_steps=3)
+    env = PlasticineEnv("tiny.yml", 1, scene=_tiny_scene(tspec, "float64"), device="cpu",
+                        max_episode_steps=3)
     args = SimpleNamespace(num_steps=6, softness=666.0, lr=0.1, optim="Adam")
     actions = solve_action(env, str(tmp_path), None, args)
     assert actions.shape == (3, 3) and np.isfinite(actions).all()
@@ -140,7 +141,8 @@ def test_solve_action_honours_host_loop(tmp_path, monkeypatch, host_loop):
             return _real(self, *a, **kw)
 
         monkeypatch.setattr(Solver, name, spy)
-    env = PlasticineEnv(_tiny_scene(tspec, "float64"), device="cpu", max_episode_steps=2)
+    env = PlasticineEnv("tiny.yml", 1, scene=_tiny_scene(tspec, "float64"), device="cpu",
+                        max_episode_steps=2)
     args = SimpleNamespace(num_steps=4, softness=666.0, lr=0.1, optim="Adam")
     if host_loop:
         args.host_loop = True
@@ -163,7 +165,7 @@ def test_env_seed_seeds_the_solvers_initial_actions():
     cfg = dict(horizon=4, init_range=0.5)
     draws = []
     for _ in range(2):
-        env = PlasticineEnv(_tiny_scene(tspec), device="cpu")
+        env = PlasticineEnv("tiny.yml", 1, scene=_tiny_scene(tspec), device="cpu")
         env.seed(7)
         draws.append(Solver.init_actions(env.taichi_env, SolverConfig(**cfg)))
     np.testing.assert_array_equal(draws[0], draws[1])
