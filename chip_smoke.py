@@ -100,7 +100,23 @@ Phases, each fatal on failure:
    collection and updates; launch counts: 19 of each batched forward kernel
    a batched step, K7-fwd-b a step and a reset, no single-env launch), and
    with obs_mode="rgb" for 5 steps and one update_many_device(n=8) of SAC on
-   (64, 64, 3) frames (6 K9-b launches);
+   (64, 64, 3) frames (6 K9-b launches); then rl: the rest of the RL stack
+   at its default widths on Move-v1's 1214 observations and 6 actions,
+   each learner card vs CPU from the same weights, data and seam draws
+   (TD3 train_many_device(n=8), OriginalDDPG 8 trains, DisCor
+   update_many_device(n=8), 4 PPO _minibatch_update of 256, 11 A2C_ACKTR
+   updates of 200 across the eigen refresh, 4 GAIL updates; the loss within
+   1e-5, each parameter tensor within 5% of the CPU's step in L2 norm, the
+   largest element against the CPU's mean step logged), train_td3_vec and
+   DisCor through run_sac.train_vec at B = 8 for two 50-step horizons
+   (start 64, 744 updates each), train_ppo_vec at B = 8 for one update of
+   32 steps, the rgb forms of train_td3_vec and train_ppo_vec for 5 steps,
+   and train_ppo(algo="acktr") on make("Move-v1") for 50 steps and one
+   update; launch counts: 19 of each batched forward kernel a batched step,
+   K7-fwd-b (and with rgb K9-b) a step and a reset, no single-env launch;
+   19 of each single-env forward kernel an ACKTR step; env steps/s,
+   updates/s, seconds per PPO update, the host seconds of collection and
+   updates, the phase's own seconds;
 14. vec gradient: `build_batched_rollout_grad` on Move-v1 (horizon 50,
    bench.py's actions tiled over B, `batch_states(..., jitter=1e-3)`) for
    B = 1, 8 and 32: launch counts (950 of each batched substep backward
@@ -136,7 +152,10 @@ Phases, each fatal on failure:
    (L2-cold and L2-warm), the
    device's busy share in an rgb env step and a 1-spp frame, in 2 batched
    rgb env steps at B = 1, 8 and 32, in one SAC train_vec iteration at
-   B = 32 (explore_batch, a batched step, 32 updates), in 5 batched
+   B = 32 (explore_batch, a batched step, 32 updates), in one TD3
+   train_td3_vec iteration at B = 32 (its actions, a batched step, the
+   buffer write, 32 updates), in one PPO update of 32 x 32 samples (with
+   the runtime's launch, copy and synchronise calls), in 5 batched
    env steps and in a 2-step batched gradient at B = 1 and B = 32 with the
    device operations per batched substep (B = 32 within 1.2x of B = 1: no
    per-env loop, forward or backward), after everything else (an active
@@ -361,6 +380,28 @@ SAC_LOSS_TOL = 1e-5
 SAC_PARAM_TOL = 0.05
 SAC_START = 64        # start_steps of the state collection run (2 horizons)
 SAC_RGB_STEPS = 5     # batched rgb steps, then one update_many_device(n=SAC_B)
+
+# Phase rl: the rest of the RL stack (TD3, OriginalDDPG, DisCor, PPO, ACKTR,
+# GAIL) at the learners' default widths on Move-v1's observations (1214) and
+# actions (6). Each learner's updates on the card against the same on the
+# CPU from the same weights, data and seam draws, both float32: the loss to
+# SAC_LOSS_TOL relative; every parameter tensor's difference to
+# RL_PARAM_TOL of the step the CPU took (L2 norms of card - CPU and of the
+# CPU's change). The largest single element is logged against the CPU's
+# mean step per update, not bounded: Adam moves an element whose gradient
+# sits near its eps (1e-8) by g / (|g| + eps) of a step, so float32 noise
+# in a gradient 1e7 times below its layer's largest moves it by a share of
+# a step (`tools/rl_precision.py` shows it for GAIL, in float32 and float64).
+RL_UPDATES = 8        # TD3, OriginalDDPG, DisCor updates of the check
+RL_PPO_MB = 256       # samples of PPO's checked minibatches
+RL_PPO_STEPS = 4      # _minibatch_update calls of the check
+RL_KFAC_ROWS = 200    # ACKTR's rollout (run_ppo.train_ppo's default for acktr)
+RL_KFAC_UPDATES = 11  # crosses the eigen refresh at Tf = 10
+RL_GAIL_UPDATES = 4
+RL_PARAM_TOL = 0.05
+RL_PPO_T = 32         # train_ppo_vec's rollout_len at SAC_B envs: one update
+RL_ACKTR_T = 50       # train_ppo(algo="acktr") on one env: rollout and steps
+RL_PROFILE_T = 32     # rollout_len of the profiled PPO update at B = 32
 
 # The card's published peaks (H100 SXM, NVIDIA's data sheet, dense, at
 # 700 W): HBM bytes/s and float32 operations/s outside the tensor cores.
@@ -1550,6 +1591,299 @@ def phase_sac():
     return got[DEVICE][3]
 
 
+def share(diff, scale):
+    """diff / scale, where a scale of 0 admits only a diff of 0."""
+    return diff / scale if scale > 0 else (0.0 if diff == 0 else float("inf"))
+
+
+def card_vs_cpu(name, build, run, modules, updates):
+    """build(device) -> learner; run(learner, device) -> loss (float);
+    modules(learner) -> the nn.Modules whose parameters are compared. The
+    same on the card and on the CPU; returns the card's learner."""
+    got = {}
+    for dev in (DEVICE, "cpu"):
+        algo = build(dev)
+        before = [p.detach().cpu().clone() for m in modules(algo) for p in m.parameters()]
+        t0 = time.perf_counter()
+        loss = float(run(algo, dev))
+        secs = time.perf_counter() - t0
+        after = [p.detach().cpu().clone() for m in modules(algo) for p in m.parameters()]
+        got[dev] = (loss, before, after, secs, algo)
+    (lc, _, pc, sc, algo), (lh, bh, ph, sh, _) = got[DEVICE], got["cpu"]
+    step = max(float((a - b).abs().max()) for a, b in zip(ph, bh)) / updates
+    element = max(float((a - b).abs().max()) for a, b in zip(pc, ph)) / step
+    worst = max(share(float((c - h).norm()), float((h - b).norm()))
+                for c, h, b in zip(pc, ph, bh))
+    rel = abs(lc - lh) / abs(lh)
+    log(f"phase rl {name}: card vs CPU from the same weights, data and draws, {updates} "
+        f"updates: loss {lc:.9g} vs {lh:.9g} rel {rel:.3e} (bound {SAC_LOSS_TOL:.0e}); "
+        f"parameters: worst tensor |card - CPU| / |CPU step| {worst:.3e} (bound "
+        f"{RL_PARAM_TOL}), largest element {element:.3e} of the CPU's mean step {step:.3e}; "
+        f"{sc:.4f} s on the card (first call), {sh:.4f} s on the CPU")
+    if not (np.isfinite(lc) and rel <= SAC_LOSS_TOL and worst <= RL_PARAM_TOL):
+        raise AssertionError(f"{name}: the update on the card disagrees with the CPU's")
+    return algo
+
+
+RL_D, RL_A = 1214, 6  # Move-v1's observation and action widths
+
+
+def rl_inputs():
+    """The seeded data and seam draws of phase rl's card-vs-CPU checks."""
+    D, A, N, B = RL_D, RL_A, SAC_ROWS, SAC_BATCH
+    rng = np.random.default_rng(SEED + 30)
+    x = SimpleNamespace()
+    x.data = (rng.normal(0.5, 0.3, (N, D)), rng.uniform(-1, 1, (N, A)),
+              rng.normal(0.5, 0.3, (N, D)), rng.standard_normal(N), np.zeros(N))
+    x.idx = [rng.integers(0, N, B) for _ in range(RL_UPDATES)]
+    x.eps = [rng.standard_normal((B, A)) for _ in range(2 * RL_UPDATES)]
+    x.mb = (rng.standard_normal((RL_PPO_MB, D)), rng.uniform(-1, 1, (RL_PPO_MB, A)),
+            rng.normal(-6.0, 1.0, RL_PPO_MB), rng.standard_normal(RL_PPO_MB),
+            rng.standard_normal(RL_PPO_MB), 0.1 * rng.standard_normal(RL_PPO_MB))
+    x.kfac_rows = [(rng.standard_normal((RL_KFAC_ROWS, D)),
+                    rng.uniform(-1, 1, (RL_KFAC_ROWS, A)), rng.standard_normal(RL_KFAC_ROWS))
+                   for _ in range(RL_KFAC_UPDATES)]
+    x.kfac_eps = [rng.standard_normal(s) for _ in range(RL_KFAC_UPDATES)
+                  for s in ((RL_KFAC_ROWS, A), (RL_KFAC_ROWS,))]
+    x.expert = (rng.normal(1.0, 1.0, (B, D)), rng.uniform(-1, 1, (B, A)))
+    x.agent = (rng.normal(-1.0, 1.0, (B, D)), rng.uniform(-1, 1, (B, A)))
+    x.alphas = [rng.random((B, 1)) for _ in range(RL_GAIL_UPDATES)]
+    return x
+
+
+def gail_learner(x, dev, dtype=None):
+    """GAIL(1214, 6) on `dev` whose interpolation weights replay x.alphas."""
+    import torch
+
+    from plasticinelab_tpu_torch.algorithms.ppo import GAIL
+
+    g = GAIL(RL_D, RL_A, seed=SEED, device=dev)
+    if dtype is not None:
+        g.net.to(dtype)
+    g.uniform = replayed([torch.as_tensor(u, dtype=dtype or torch.float32, device=dev)
+                          for u in x.alphas])
+    return g
+
+
+def rl_checks():
+    """Each learner of phase rl on the card against the CPU. Returns the
+    card's TD3 and its device buffer."""
+    import torch
+
+    from plasticinelab_tpu_torch.algorithms.common import DeviceReplayBuffer, ReplayBuffer
+    from plasticinelab_tpu_torch.algorithms.ppo import PPO, A2C_ACKTR
+    from plasticinelab_tpu_torch.algorithms.sac.discor import DisCor
+    from plasticinelab_tpu_torch.algorithms.td3.ddpg import OriginalDDPG
+    from plasticinelab_tpu_torch.algorithms.td3.td3 import TD3
+
+    D, A, N = RL_D, RL_A, SAC_ROWS
+    x = rl_inputs()
+    bufs = {}
+
+    def device_buffer(dev):
+        buf = DeviceReplayBuffer(D, A, N, device=dev)
+        buf.add_batch(*x.data)
+        bufs[dev] = buf
+        return buf
+
+    def seams(algo, dev):
+        algo.indices = replayed([torch.as_tensor(i, device=dev) for i in x.idx])
+        algo.normal = replayed([torch.as_tensor(e, dtype=torch.float32, device=dev)
+                                for e in x.eps])
+        return algo
+
+    td3 = card_vs_cpu(
+        "TD3(1214, 6) train_many_device", lambda dev: seams(TD3(D, A, seed=SEED, device=dev), dev),
+        lambda a, dev: a.train_many_device(device_buffer(dev), SAC_BATCH, RL_UPDATES),
+        lambda a: (a.actor, a.critic, a.actor_target, a.critic_target), RL_UPDATES)
+
+    host = ReplayBuffer(D, A, N)
+    host.state[:], host.action[:], host.next_state[:] = x.data[0], x.data[1], x.data[2]
+    host.reward[:], host.not_done[:], host.size = x.data[3], 1.0 - x.data[4], N
+
+    def ddpg_run(a, dev):
+        r = np.random.default_rng(SEED)
+        for _ in range(RL_UPDATES):
+            loss = a.train(host, SAC_BATCH, r)
+        return loss
+
+    card_vs_cpu("OriginalDDPG(1214, 6) train", lambda dev: OriginalDDPG(D, A, seed=SEED,
+                                                                        device=dev),
+                ddpg_run, lambda a: (a.actor, a.critic, a.actor_target, a.critic_target),
+                RL_UPDATES)
+
+    card_vs_cpu("DisCor(1214, 6) update_many_device",
+                lambda dev: seams(DisCor(D, A, seed=SEED, device=dev), dev),
+                lambda a, dev: a.update_many_device(device_buffer(dev), SAC_BATCH, RL_UPDATES),
+                lambda a: (a.policy, a.q, a.q_target, a.err, a.err_target), RL_UPDATES)
+
+    mb = [torch.as_tensor(a, dtype=torch.float32) for a in x.mb]
+
+    def ppo_run(a, dev):
+        for _ in range(RL_PPO_STEPS):
+            loss, _ = a._minibatch_update(*(t.to(dev) for t in mb))
+        return loss
+
+    card_vs_cpu("PPO(1214, 6) _minibatch_update", lambda dev: PPO(D, A, seed=SEED, device=dev),
+                ppo_run, lambda a: (a.net,), RL_PPO_STEPS)
+
+    def acktr_build(dev):
+        a = A2C_ACKTR(D, A, seed=SEED, device=dev)
+        a.normal = replayed([torch.as_tensor(e, dtype=torch.float32, device=dev)
+                             for e in x.kfac_eps])
+        return a
+
+    def acktr_run(a, dev):
+        for o, act, ret in x.kfac_rows:
+            loss = a.update({"obs": torch.as_tensor(o, dtype=torch.float32, device=dev),
+                             "actions": torch.as_tensor(act, dtype=torch.float32, device=dev),
+                             "returns": torch.as_tensor(ret, dtype=torch.float32, device=dev)})
+        if a.kfac.steps != RL_KFAC_UPDATES:
+            raise AssertionError(f"ACKTR took {a.kfac.steps} K-FAC steps")
+        return loss
+
+    card_vs_cpu("A2C_ACKTR(1214, 6) update (eigh at steps 0 and 10)", acktr_build, acktr_run,
+                lambda a: (a.net,), RL_KFAC_UPDATES)
+
+    def gail_run(g, dev):
+        for _ in range(RL_GAIL_UPDATES):
+            loss = g.update(x.expert, x.agent)
+        return loss
+
+    card_vs_cpu("GAIL(1214, 6) update", lambda dev: gail_learner(x, dev), gail_run,
+                lambda g: (g.net,), RL_GAIL_UPDATES)
+    return td3, bufs[DEVICE]
+
+
+def rl_run(label, run, want, mods):
+    """Runs run() with every launch count at 0 just before; fails unless the
+    counts (those not 0) equal `want`. Returns run()'s result and its host
+    seconds."""
+    import torch
+
+    for mod in mods:
+        mod.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: v for mod in mods for k, v in mod.launches.items() if v}
+    log(f"  {label}: launches {launches}")
+    if launches != want:
+        raise AssertionError(f"{label} launched {launches}, expected {want}")
+    return out, secs
+
+
+def batched_launches(steps, resets, rgb=False):
+    """Launch counts of `steps` batched Move-v1 steps and `resets` resets."""
+    want = {k: 19 * steps for k in ("stress_affine", "p2g_batched", "grid_op_batched",
+                                    "g2p_batched")}
+    want["grid_mass_batched"] = steps + resets
+    if rgb:
+        want["voxelize_batched"] = steps + resets
+    return want
+
+
+def phase_rl():
+    """TD3 / OriginalDDPG / DisCor / PPO / ACKTR / GAIL at full width: each
+    learner's updates card vs CPU; train_td3_vec and DisCor's train_vec on
+    VecPlasticineEnv("Move-v1", batch=SAC_B) for two horizons, train_ppo_vec
+    for one update of RL_PPO_T steps, the rgb forms of TD3 and PPO for
+    SAC_RGB_STEPS steps, train_ppo(algo="acktr") on one env for RL_ACKTR_T
+    steps; launch counts prove each collection ran through the kernels."""
+    import tempfile
+
+    import torch
+
+    from plasticinelab_tpu_torch.algorithms.ppo.run_ppo import train_ppo, train_ppo_vec
+    from plasticinelab_tpu_torch.algorithms.sac.discor import DisCor
+    from plasticinelab_tpu_torch.algorithms.sac.run_sac import train_vec
+    from plasticinelab_tpu_torch.algorithms.td3.run_td3 import train_td3_vec
+    from plasticinelab_tpu_torch.algorithms.td3.td3 import TD3
+    from plasticinelab_tpu_torch.engine import cuda_gridop, cuda_stress, cuda_transfer
+    from plasticinelab_tpu_torch.engine.renderer import cuda_voxelize
+    from plasticinelab_tpu_torch.envs import make
+    from plasticinelab_tpu_torch.parallel import VecPlasticineEnv
+
+    t_phase = time.perf_counter()
+    td3, buf = rl_checks()
+    mods = (cuda_stress, cuda_transfer, cuda_gridop, cuda_voxelize)
+    B = SAC_B
+    with tempfile.TemporaryDirectory() as path:
+        for mode, steps, start in (("state", 2 * HORIZON, SAC_START),
+                                   ("rgb", SAC_RGB_STEPS, SAC_RGB_STEPS * B)):
+            for name in ("TD3", "DisCor") if mode == "state" else ("TD3",):
+                venv = VecPlasticineEnv("Move-v1", batch=B, seed=SEED, horizon=HORIZON,
+                                        obs_mode=mode, device=DEVICE)
+                shape = venv.obs_shape if mode == "rgb" else venv.obs_dim
+                args = SimpleNamespace(env_name="Move-v1", seed=SEED, num_steps=steps * B,
+                                       obs_mode=mode, algo=name.lower())
+                if name == "TD3":
+                    algo = TD3(shape, venv.action_dim, seed=SEED, device=DEVICE)
+                    run = lambda: train_td3_vec(algo, args, path, venv=venv,  # noqa: E731
+                                                start_timesteps=start)
+                else:
+                    algo = DisCor(shape, venv.action_dim, seed=SEED, device=DEVICE)
+                    run = lambda: train_vec(None, algo, path, args, venv=venv,  # noqa: E731
+                                            start_steps=start)
+                want = batched_launches(steps, 1 + steps // HORIZON, rgb=mode == "rgb")
+                rl_run(f"{name} vec {mode}, {steps} batched steps at B={B}", run, want, mods)
+                st = algo.vec_stats
+                updates = B * (steps - start // B + 1)
+                log(f"phase rl {name} {mode}: VecPlasticineEnv('Move-v1', batch={B}), {steps} "
+                    f"batched steps, warm-up {start}: {st['env_steps']} env steps in "
+                    f"{st['seconds']:.3f} s ({st['env_steps'] / st['seconds']:.3f} env steps/s); "
+                    f"{st['updates']} updates in {st['update_s']:.3f} host s "
+                    f"({st['updates'] / max(st['update_s'], 1e-9):.1f} updates/s); collection "
+                    f"{st['collect_s']:.3f} host s")
+                nets = (algo.actor, algo.critic) if name == "TD3" else (algo.policy, algo.err)
+                finite = all(bool(torch.isfinite(p).all()) for m in nets for p in m.parameters())
+                if st["updates"] != updates or not finite:
+                    raise AssertionError(f"{name} vec {mode}: {st['updates']} updates "
+                                         f"(expected {updates}), finite parameters {finite}")
+                del venv, algo
+                torch.cuda.empty_cache()
+
+        for mode, T in (("state", RL_PPO_T), ("rgb", SAC_RGB_STEPS)):
+            venv = VecPlasticineEnv("Move-v1", batch=B, seed=SEED, horizon=HORIZON,
+                                    obs_mode=mode, device=DEVICE)
+            args = SimpleNamespace(env_name="Move-v1", seed=SEED, num_steps=T * B)
+            agent, _ = rl_run(
+                f"PPO vec {mode}, rollout_len {T} at B={B}",
+                lambda: train_ppo_vec(args, path, venv=venv, rollout_len=T),
+                batched_launches(T, 1, rgb=mode == "rgb"), mods)
+            st = agent.vec_stats
+            finite = all(bool(torch.isfinite(p).all()) for p in agent.net.parameters())
+            mb = max(T * B // agent.num_mini_batch, 1)
+            n_mb = agent.ppo_epoch * len(range(0, T * B - mb + 1, mb))
+            log(f"phase rl PPO {mode}: train_ppo_vec, {st['env_steps']} env steps in "
+                f"{st['seconds']:.3f} s ({st['env_steps'] / st['seconds']:.3f} env steps/s); "
+                f"collection {st['collect_s']:.3f} host s ({st['env_steps'] / st['collect_s']:.3f}"
+                f" env steps/s); {st['update_s'] / st['updates']:.3f} s per update "
+                f"({n_mb} minibatch steps of {mb})")
+            if st["updates"] != 1 or not finite:
+                raise AssertionError(f"PPO vec {mode}: {st['updates']} updates, finite {finite}")
+            del venv, agent
+            torch.cuda.empty_cache()
+
+        env = make("Move-v1", device=DEVICE)
+        args = SimpleNamespace(seed=SEED, num_steps=RL_ACKTR_T, vec_envs=0,
+                               rollout_len=RL_ACKTR_T)
+        want = {k: 19 * RL_ACKTR_T for k in ("stress_affine", "p2g", "grid_op", "g2p")}
+        want["grid_mass"] = RL_ACKTR_T + 1 + RL_ACKTR_T // env._max_episode_steps
+        agent, secs = rl_run(f"ACKTR on one env, {RL_ACKTR_T} steps",
+                             lambda: train_ppo(env, path, None, args, algo="acktr"), want, mods)
+        finite = all(bool(torch.isfinite(p).all()) for p in agent.net.parameters())
+        log(f"phase rl ACKTR: train_ppo(algo='acktr') on make('Move-v1'), {RL_ACKTR_T} env "
+            f"steps and one update in {secs:.3f} s ({RL_ACKTR_T / secs:.3f} env steps/s, the "
+            f"update included); K-FAC steps {agent.kfac.steps}")
+        if agent.kfac.steps != 1 or not finite:
+            raise AssertionError(f"ACKTR: {agent.kfac.steps} K-FAC steps, finite {finite}")
+    log(f"phase rl: {time.perf_counter() - t_phase:.1f} s")
+    return td3, buf
+
+
 def phase_reference():
     from plasticinelab_tpu_torch.envs import make
 
@@ -2732,6 +3066,7 @@ def main():
     vec_rgb = timed(phase_vec_rgb)
     launches["voxelize_batched"] = vec_rgb["launches"][VEC_BATCHES[-1]]
     sac = timed(phase_sac)
+    rl = timed(phase_rl)
     vgrad = timed(phase_vec_gradient)
     results.update(timed(phase_vec_backward))
     launches.update({k: vgrad["launches"][k] for k in BATCHED_BWD})
@@ -2793,6 +3128,39 @@ def main():
         f"updates of batch {SAC_BATCH}): device busy {busy:.3f} ms of {wall:.3f} ms wall, busy "
         f"share {share:.4f}; device operations {ops}, runtime calls "
         + ", ".join(f"{k} {v}" for k, v in calls.items()))
+    t_rl = time.perf_counter()
+    td3, td3_buf = rl
+    td3.normal, td3.indices = samplers(DEVICE, SEED)
+    zeros_done = torch.zeros((B,), device=DEVICE)
+
+    def td3_iteration():
+        acts = td3.select_action_batch(obs)
+        acts = torch.clamp(acts + 0.1 * td3.normal(acts.shape), -1, 1)
+        nobs, reward, _, _ = ve.step(acts)
+        td3_buf.add_batch(obs, acts, nobs, reward, zeros_done)
+        td3.train_many_device(td3_buf, SAC_BATCH, B)
+
+    busy, wall, share, ops, calls = vec_profile(td3_iteration)
+    log(f"  one TD3 train_td3_vec iteration, B={B} (select_action_batch and its noise, a "
+        f"batched env step, the buffer write, {B} updates of batch {SAC_BATCH}): device busy "
+        f"{busy:.3f} ms of {wall:.3f} ms wall, busy share {share:.4f}; device operations "
+        f"{ops}, runtime calls " + ", ".join(f"{k} {v}" for k, v in calls.items()))
+    from plasticinelab_tpu_torch.algorithms.ppo import PPO
+
+    ppo = PPO(1214, 6, seed=SEED, device=DEVICE)
+    n = RL_PROFILE_T * B
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    rollouts = {k: torch.randn(shape, generator=gen, device=DEVICE) for k, shape in (
+        ("obs", (n, 1214)), ("actions", (n, 6)), ("logp", (n,)), ("returns", (n,)),
+        ("values", (n,)))}
+    ppo_rng = np.random.default_rng(SEED)
+    busy, wall, share, ops, calls = vec_profile(lambda: ppo.update(rollouts, ppo_rng))
+    log(f"  one PPO update, B={B} x rollout_len {RL_PROFILE_T} = {n} samples (10 epochs of 32 "
+        f"minibatches of {n // 32}): device busy {busy:.3f} ms of {wall:.3f} ms wall, busy "
+        f"share {share:.4f}; device operations {ops}, runtime calls "
+        + ", ".join(f"{k} {v}" for k, v in calls.items()))
+    log(f"  the TD3 and PPO profiles: {time.perf_counter() - t_rl:.1f} s (with phase rl's, "
+        "the new phases' time)")
     per_substep = {}
     for B in (VEC_BATCHES[0], VEC_BATCHES[-1]):
         ve = vec["envs"][B]

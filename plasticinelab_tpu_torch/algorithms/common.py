@@ -242,7 +242,8 @@ def params_from_flax(module: nn.Module, tree: Mapping) -> nn.Module:
     """Copy a flax parameter tree (nested dicts of arrays, with or without
     the top-level "params") into `module`, in place, in its dtype. A flax
     `Dense` kernel is (in, out), a `Linear` weight its transpose; a `Conv`
-    kernel is HWIO, a `Conv2d` weight OIHW. Layers are matched by flax's
+    kernel is HWIO, a `Conv2d` weight OIHW; a bare `nn.Parameter` (flax's
+    `self.param`) takes its array as it is. Layers are matched by flax's
     names in call order (`flax_children`)."""
     if set(tree) == {"params"}:
         tree = tree["params"]
@@ -251,16 +252,26 @@ def params_from_flax(module: nn.Module, tree: Mapping) -> nn.Module:
     return module
 
 
-def _carry(module: nn.Module, tree: Mapping) -> None:
+def _copy(param: torch.Tensor, value, name: str) -> None:
+    value = torch.as_tensor(np.array(value))
+    if value.shape != param.shape:
+        raise ValueError(f"{name}: {tuple(value.shape)} vs {tuple(param.shape)}")
+    param.copy_(value)
+
+
+def _carry(module, tree) -> None:
+    if isinstance(module, nn.Parameter):
+        if isinstance(tree, Mapping):
+            raise ValueError(f"a parameter leaf vs the tree's layer {sorted(tree)}")
+        _copy(module, tree, "parameter")
+        return
+    if not isinstance(tree, Mapping):
+        raise ValueError(f"{type(module).__name__} vs the tree's array leaf")
     if isinstance(module, (nn.Linear, nn.Conv2d)):
         kernel = np.asarray(tree["kernel"])
         kernel = kernel.T if isinstance(module, nn.Linear) else kernel.transpose(3, 2, 0, 1)
         for param, value in ((module.weight, kernel), (module.bias, tree["bias"])):
-            value = torch.as_tensor(np.array(value))
-            if value.shape != param.shape:
-                raise ValueError(f"{type(module).__name__}: {tuple(value.shape)} vs "
-                                 f"{tuple(param.shape)}")
-            param.copy_(value)
+            _copy(param, value, type(module).__name__)
         return
     children = module.flax_children()
     if sorted(name for name, _ in children) != sorted(tree):
@@ -399,6 +410,23 @@ def sample_device_batch(bufs, size: int, batch_size: int,
     return tuple(b[idx] for b in bufs)
 
 
+def device_batch(algo, replay_buffer, batch_size: int, obs_stats=None):
+    """A minibatch of a Device(Image)ReplayBuffer drawn with `algo.indices`:
+    frames scaled to [0, 1], or raw state observations normalised with
+    `obs_stats` (mean, inv_std) where given."""
+    batch = sample_device_batch(replay_buffer.arrays(), replay_buffer.size, batch_size,
+                                algo.indices)
+    if algo.visual:
+        # times the float32 reciprocal of 255, as the reference's compiled
+        # division by a constant rounds
+        return (batch[0].to(torch.float32) * (1.0 / 255.0), batch[1],
+                batch[2].to(torch.float32) * (1.0 / 255.0)) + batch[3:]
+    if obs_stats is not None:
+        return (normalize_obs(batch[0], obs_stats), batch[1],
+                normalize_obs(batch[2], obs_stats)) + batch[3:]
+    return batch
+
+
 def normalize_obs(x, stats, clip: float = 10.0):
     """(x - mean) * inv_std, clipped (VecNormalize semantics, the
     normalisation the PPO loop applies, run_ppo.RunningMeanStd)."""
@@ -433,6 +461,29 @@ class DeviceObsRMS:
 
     def stats(self):
         return self.mean, 1.0 / (torch.sqrt(self.var) + 1e-8)
+
+
+def env_reset(env):
+    """The observation of `env.reset()`, gymnasium's (obs, info) or gym's."""
+    out = env.reset()
+    return out[0] if isinstance(out, tuple) else out
+
+
+def env_step(env, action):
+    """(obs, reward, done, info) of `env.step(action)`: gymnasium's
+    terminated or truncated is `done`."""
+    out = env.step(action)
+    if len(out) == 5:
+        obs, r, term, trunc, info = out
+        return obs, r, bool(term or trunc), info
+    return out
+
+
+def apply_grads(opt: torch.optim.Optimizer, params, grads) -> None:
+    """One step of `opt` on `params` with the gradients `grads`."""
+    for p, g in zip(params, grads):
+        p.grad = g
+    opt.step()
 
 
 def soft_update(target: nn.Module, online: nn.Module, tau: float) -> nn.Module:

@@ -4,7 +4,8 @@ plb/algorithms/discor/run_sac.py + agent.py: batch 256, 1M buffer, 2500
 warm-up steps, one update per env step, an evaluation every 200 episodes
 over 5 episodes, best and final models saved).
 
-`train` runs the reference's one-env host loop (`Agent`), or with
+`train` runs the reference's one-env host loop (`Agent`) for SAC or, with
+`args.algo` "discor", DisCor (`discor.py`); or with
 `args.vec_envs` > 1 `train_vec`: B envs of `VecPlasticineEnv` step together
 on the card, their observations and rewards stay device tensors into a
 `DeviceReplayBuffer`, and each batched step is followed by B updates
@@ -18,21 +19,9 @@ import time
 import numpy as np
 import torch
 
-from ..common import DeviceImageReplayBuffer, DeviceReplayBuffer, ImageReplayBuffer, ReplayBuffer
+from ..common import (DeviceImageReplayBuffer, DeviceReplayBuffer, ImageReplayBuffer, ReplayBuffer,
+                      env_reset, env_step)
 from .sac import SAC
-
-
-def _reset(env):
-    out = env.reset()
-    return out[0] if isinstance(out, tuple) else out
-
-
-def _step(env, action):
-    out = env.step(action)
-    if len(out) == 5:
-        obs, r, term, trunc, info = out
-        return obs, r, bool(term or trunc), info
-    return out
 
 
 class Agent:
@@ -72,7 +61,7 @@ class Agent:
 
     def _train_episode(self):
         self._episodes += 1
-        state = _reset(self._env)
+        state = env_reset(self._env)
         done = False
         t = 0
         if self.logger is not None:
@@ -82,7 +71,7 @@ class Agent:
                 action = self._env.action_space.sample()
             else:
                 action = self._algo.explore(np.asarray(state, np.float32))
-            next_state, reward, done, info = _step(self._env, action)
+            next_state, reward, done, info = env_step(self._env, action)
             t += 1
             self._steps += 1
             done_bool = float(done) if t < self._env._max_episode_steps else 0.0
@@ -98,12 +87,12 @@ class Agent:
     def _evaluate(self):
         total = 0.0
         for _ in range(self._num_eval_episodes):
-            state = _reset(self._test_env)
+            state = env_reset(self._test_env)
             done = False
             t = 0
             while not done and t < self._test_env._max_episode_steps:
                 action = self._algo.exploit(np.asarray(state, np.float32))
-                state, reward, done, info = _step(self._test_env, action)
+                state, reward, done, info = env_step(self._test_env, action)
                 total += reward
                 t += 1
         mean_return = total / self._num_eval_episodes
@@ -114,10 +103,14 @@ class Agent:
 
 
 def train(env, path, logger, args):
-    """SAC on `env` (the port's PlasticineEnv), on its device. `--algo
-    discor` is not ported (ROADMAP A14) and is refused by the CLI."""
+    """SAC on `env` (the port's PlasticineEnv), on its device; with
+    `args.algo` "discor", DisCor (SAC with the DisCor error model)."""
     obs_shape = env.observation_space.shape
-    algo = SAC(
+    if getattr(args, "algo", "sac") == "discor":
+        from .discor import DisCor as algo_cls
+    else:
+        algo_cls = SAC
+    algo = algo_cls(
         state_dim=(obs_shape if len(obs_shape) == 3 else obs_shape[0]),
         action_dim=env.action_space.shape[0],
         gamma=0.99, policy_lr=3e-4, q_lr=3e-4, entropy_lr=3e-4,

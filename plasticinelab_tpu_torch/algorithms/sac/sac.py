@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..common import (GaussianPolicy, ReplayBuffer, TwinQ, VisualGaussianPolicy, VisualTwinQ,
-                      normalize_obs, sample_device_batch, soft_update)
+                      apply_grads, device_batch, soft_update)
 
 
 def samplers(device, seed: int) -> Tuple[Callable, Callable]:
@@ -40,12 +40,6 @@ def samplers(device, seed: int) -> Tuple[Callable, Callable]:
         return torch.randint(0, size, (batch,), generator=gen, device=device)
 
     return normal, indices
-
-
-def _step(opt: torch.optim.Optimizer, params, grads) -> None:
-    for p, g in zip(params, grads):
-        p.grad = g
-    opt.step()
 
 
 class SAC:
@@ -137,19 +131,19 @@ class SAC:
         q_params = list(self.q.parameters())
         q1, q2 = self.q(state, action)
         qloss = torch.mean((q1 - target_q) ** 2) + torch.mean((q2 - target_q) ** 2)
-        _step(self.q_opt, q_params, torch.autograd.grad(qloss, q_params))
+        apply_grads(self.q_opt, q_params, torch.autograd.grad(qloss, q_params))
 
         p_params = list(self.policy.parameters())
         m, ls = self.policy(state)
         a, logp = GaussianPolicy.sample(m, ls, eps2)
         q1, q2 = self.q(state, a)
         ploss = torch.mean(alpha * logp - torch.minimum(q1, q2))
-        _step(self.policy_opt, p_params, torch.autograd.grad(ploss, p_params))
+        apply_grads(self.policy_opt, p_params, torch.autograd.grad(ploss, p_params))
 
         # linear in log_alpha (discor/algorithm/sac.py:134-136): the gradient
         # is bounded by |logp + target_entropy| whatever alpha is
         aloss = -torch.mean(self.log_alpha * (logp.detach() + self.target_entropy))
-        _step(self.alpha_opt, [self.log_alpha], torch.autograd.grad(aloss, [self.log_alpha]))
+        apply_grads(self.alpha_opt, [self.log_alpha], torch.autograd.grad(aloss, [self.log_alpha]))
         with torch.no_grad():
             self.log_alpha.clamp_(-9.2, self.log_alpha_max)
 
@@ -185,18 +179,8 @@ class SAC:
         are normalised with the stats current at update time. The
         reference runs the n updates as one scanned dispatch; here each is
         its own launches, so the loop is bound by the host's launch rate."""
-        bufs, size = replay_buffer.arrays(), replay_buffer.size
         for _ in range(n):
-            batch = sample_device_batch(bufs, size, batch_size, self.indices)
-            if self.visual:  # uint8-stored frames -> float [0, 1]
-                # times the float32 reciprocal of 255, as the reference's
-                # compiled division by a constant rounds
-                batch = (batch[0].to(torch.float32) * (1.0 / 255.0), batch[1],
-                         batch[2].to(torch.float32) * (1.0 / 255.0)) + batch[3:]
-            elif obs_stats is not None:
-                batch = (normalize_obs(batch[0], obs_stats), batch[1],
-                         normalize_obs(batch[2], obs_stats)) + batch[3:]
-            loss = self._update(batch)
+            loss = self._update(device_batch(self, replay_buffer, batch_size, obs_stats))
         return loss
 
     # ---- persistence ----

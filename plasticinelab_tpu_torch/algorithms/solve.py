@@ -3,9 +3,13 @@
 Counterpart of `plasticinelab_tpu/algorithms/solve.py` with the same flags
 and defaults (behavioral reference plb/algorithms/solve.py: 50x200 env
 steps for the differentiable solvers, 500k for RL). It runs on the card;
-`main(argv, device="cpu")` runs the plain versions on the CPU. Ported:
-`action`, `nn` and `sac` (with `--vec_envs`); `discor`, `td3`, `ppo` and
-`acktr` are refused (ROADMAP A14).
+`main(argv, device="cpu")` runs the plain versions on the CPU. Every
+`--algo` of the reference is dispatched: `action`, `nn`, `sac` and
+`discor` (`sac/run_sac.train`), `td3` (`td3/run_td3.train_td3`, `--policy`
+TD3, OurDDPG or DDPG), `ppo` and `acktr` (`ppo/run_ppo.train_ppo`).
+`--vec_envs` B > 1 collects with B batched envs for sac, discor, td3 (TD3
+only: `--policy OurDDPG|DDPG --vec_envs B` is refused, as the reference
+has no batched DDPG) and ppo.
 """
 from __future__ import annotations
 
@@ -16,7 +20,6 @@ import numpy as np
 
 RL_ALGOS = ["sac", "discor", "td3", "ppo", "acktr"]
 DIFF_ALGOS = ["action", "nn"]
-NOT_PORTED = ("discor", "td3", "ppo", "acktr")
 
 
 def set_random_seed(seed: int):
@@ -64,10 +67,6 @@ def get_args(argv=None):
 
 def main(argv=None, *, device="cuda"):
     args = get_args(argv)
-    if args.algo in NOT_PORTED:
-        raise NotImplementedError(
-            f"--algo {args.algo} is not ported yet: TD3/DDPG, DisCor and the PPO family "
-            "are ROADMAP item A14")
     from ..envs import make
     from .logger import Logger
 
@@ -94,9 +93,17 @@ def main(argv=None, *, device="cuda"):
         from ..optimizer.solver_nn import solve_nn
 
         return solve_nn(env, args.path, logger, args)
-    from .sac.run_sac import train as train_sac
+    if args.algo in ("sac", "discor"):
+        from .sac.run_sac import train as train_sac
 
-    return train_sac(env, args.path, logger, args)
+        return train_sac(env, args.path, logger, args)
+    if args.algo == "td3":
+        from .td3.run_td3 import train_td3
+
+        return train_td3(env, args.path, logger, args)
+    from .ppo.run_ppo import train_ppo
+
+    return train_ppo(env, args.path, logger, args, algo=args.algo)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """The port's episode logger and command line against the TPU package's:
 the `train` CSV of the same episodes equal line for line
 (tests/test_logger.py carried over), `get_args` the same namespace for the
-same argv, the dispatch of `main` on `--algo` (on the CPU, through a stub
-of `make`), and the algorithms not ported yet refused, naming ROADMAP A14."""
+same argv, and the dispatch of `main` on every `--algo` (on the CPU,
+through a stub of `make`)."""
 import os
 
 import pytest
@@ -62,21 +62,18 @@ def test_get_args_matches_reference(argv):
     assert solve.RL_ALGOS == jsolve.RL_ALGOS and solve.DIFF_ALGOS == jsolve.DIFF_ALGOS
 
 
-@pytest.mark.parametrize("algo", ["discor", "td3", "ppo", "acktr"])
-def test_unported_algos_are_refused(algo, tmp_path, monkeypatch):
-    built = []
-    monkeypatch.setattr("plasticinelab_tpu_torch.envs.make", lambda *a, **kw: built.append(a))
-    with pytest.raises(NotImplementedError, match="A14"):
-        solve.main(["--algo", algo, "--path", str(tmp_path)], device="cpu")
-    assert not built
-
-
-@pytest.mark.parametrize("algo,entry", [("action", "optimizer.solver.solve_action"),
-                                        ("nn", "optimizer.solver_nn.solve_nn"),
-                                        ("sac", "algorithms.sac.run_sac.train")])
-def test_main_dispatches_on_the_device_asked(algo, entry, tmp_path, monkeypatch):
+@pytest.mark.parametrize("algo,entry,kw", [
+    ("action", "optimizer.solver.solve_action", {}),
+    ("nn", "optimizer.solver_nn.solve_nn", {}),
+    ("sac", "algorithms.sac.run_sac.train", {}),
+    ("discor", "algorithms.sac.run_sac.train", {}),
+    ("td3", "algorithms.td3.run_td3.train_td3", {}),
+    ("ppo", "algorithms.ppo.run_ppo.train_ppo", {"algo": "ppo"}),
+    ("acktr", "algorithms.ppo.run_ppo.train_ppo", {"algo": "acktr"})])
+def test_main_dispatches_on_the_device_asked(algo, entry, kw, tmp_path, monkeypatch):
     """main(argv, device=...) builds the env with the reference's flags on
-    that device, seeds it and hands it to the algorithm's entry with the
+    that device, seeds it and hands it to the algorithm's entry (as
+    plasticinelab_tpu/algorithms/solve.py:89-109 dispatches) with the
     reference's default budget."""
     made, seeded, called = [], [], []
 
@@ -92,10 +89,13 @@ def test_main_dispatches_on_the_device_asked(algo, entry, tmp_path, monkeypatch)
 
     monkeypatch.setattr("plasticinelab_tpu_torch.envs.make", fake_make)
     monkeypatch.setattr("plasticinelab_tpu_torch." + entry,
-                        lambda env, path, logger, args: called.append(args) or "done")
+                        lambda env, path, logger, args, **k: called.append((args, k)) or "done")
     out = solve.main(["--algo", algo, "--path", str(tmp_path), "--seed", "4"], device="cpu")
     assert out == "done" and seeded == [4]
-    (args, kw), = made
-    assert args == ("Move-v1",) and kw["device"] == "cpu" and kw["nn"] == (algo == "nn")
-    assert called[0].num_steps == (10000 if algo != "sac" else 500000)
+    (make_args, make_kw), = made
+    assert make_args == ("Move-v1",) and make_kw["device"] == "cpu"
+    assert make_kw["nn"] == (algo == "nn")
+    (args, entry_kw), = called
+    assert args.algo == algo and entry_kw == kw
+    assert args.num_steps == (10000 if algo in solve.DIFF_ALGOS else 500000)
     assert os.path.exists(tmp_path / "train")  # the logger's CSV
