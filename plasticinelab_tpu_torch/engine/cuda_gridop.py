@@ -50,7 +50,8 @@ whatever B.
 
 The wrapper takes the plain version only for a CPU tensor; for a CUDA
 tensor it launches the kernel (float32, contiguous) or raises, and so does
-the backward. `launches` counts kernel launches.
+the backward. `launches` (the counter group `cuda_gridop`) counts kernel
+launches; each launch runs in a `plb.kernel.<name>` span.
 """
 from __future__ import annotations
 
@@ -59,10 +60,12 @@ import functools
 import torch
 
 from ..config.spec import SceneSpec
+from ..utils.profiling import counter_group, span
 from . import cuda_build as cb
 from . import primitives as prim
 
-launches = {"grid_op": 0, "grid_op_bwd": 0, "grid_op_batched": 0, "grid_op_bwd_batched": 0}
+launches = counter_group("cuda_gridop", ("grid_op", "grid_op_bwd", "grid_op_batched",
+                                         "grid_op_bwd_batched"))
 
 # csrc/gridop.cu kBwdTiles x kThreads: an env's cells per block of the
 # backward, which sizes its scratch
@@ -234,16 +237,17 @@ def _check_launch(scene: SceneSpec, grid4, poses, softness) -> int:
 
 def _launch_fwd(scene: SceneSpec, grid4, poses, softness):
     """K8 forward over one env or B envs (`_check_launch`)."""
-    B = _check_launch(scene, grid4, poses, softness)
-    out = torch.empty(grid4.shape[:-1] + (3,), device=grid4.device, dtype=torch.float32)
-    err = cb.library().plb_grid_op(
-        grid4.data_ptr(), poses.data_ptr(), softness.data_ptr(), out.data_ptr(),
-        prim_table(scene.primitives), B, *_consts(scene), grid4.device.index,
-        cb.stream_of(grid4))
-    name = cb.launch_key("grid_op", grid4)
-    cb.check(err, name)
-    launches[name] += 1
-    return out
+    with span("plb.kernel.grid_op"):
+        B = _check_launch(scene, grid4, poses, softness)
+        out = torch.empty(grid4.shape[:-1] + (3,), device=grid4.device, dtype=torch.float32)
+        err = cb.library().plb_grid_op(
+            grid4.data_ptr(), poses.data_ptr(), softness.data_ptr(), out.data_ptr(),
+            prim_table(scene.primitives), B, *_consts(scene), grid4.device.index,
+            cb.stream_of(grid4))
+        name = cb.launch_key("grid_op", grid4)
+        cb.check(err, name)
+        launches[name] += 1
+        return out
 
 
 def grid_op_bwd(scene: SceneSpec, grid4, poses, softness, ct):
@@ -252,24 +256,25 @@ def grid_op_bwd(scene: SceneSpec, grid4, poses, softness, ct):
     `pack_poses`; with a leading B on every tensor, of
     `grid_op_plain_batched`, in one launch. softness: a (B,) tensor on the
     device ((1,) for one env, or then a number). CUDA tensors only."""
-    if not torch.is_tensor(softness):
-        softness = _softness_tensor(float(softness), grid4.device)
-    B = _check_launch(scene, grid4, poses, softness)
-    cb.require(ct, "ct", grid4.shape[:-1] + (3,), grid4.device)
-    cb.require_kernel_input(ct, "ct")
-    stream = cb.stream_of(grid4)
-    partials, done = _bwd_scratch(grid4.device, B, scene.simulator.n_grid,
-                                  len(scene.primitives), stream)
-    dgrid4 = torch.empty_like(grid4)
-    dposes = torch.empty_like(poses)
-    err = cb.library().plb_grid_op_bwd(
-        grid4.data_ptr(), poses.data_ptr(), softness.data_ptr(), ct.data_ptr(),
-        dgrid4.data_ptr(), dposes.data_ptr(), partials.data_ptr(), done.data_ptr(),
-        prim_table(scene.primitives), B, *_consts(scene), grid4.device.index, stream)
-    name = cb.launch_key("grid_op_bwd", grid4)
-    cb.check(err, name)
-    launches[name] += 1
-    return dgrid4, dposes
+    with span("plb.kernel.grid_op_bwd"):
+        if not torch.is_tensor(softness):
+            softness = _softness_tensor(float(softness), grid4.device)
+        B = _check_launch(scene, grid4, poses, softness)
+        cb.require(ct, "ct", grid4.shape[:-1] + (3,), grid4.device)
+        cb.require_kernel_input(ct, "ct")
+        stream = cb.stream_of(grid4)
+        partials, done = _bwd_scratch(grid4.device, B, scene.simulator.n_grid,
+                                      len(scene.primitives), stream)
+        dgrid4 = torch.empty_like(grid4)
+        dposes = torch.empty_like(poses)
+        err = cb.library().plb_grid_op_bwd(
+            grid4.data_ptr(), poses.data_ptr(), softness.data_ptr(), ct.data_ptr(),
+            dgrid4.data_ptr(), dposes.data_ptr(), partials.data_ptr(), done.data_ptr(),
+            prim_table(scene.primitives), B, *_consts(scene), grid4.device.index, stream)
+        name = cb.launch_key("grid_op_bwd", grid4)
+        cb.check(err, name)
+        launches[name] += 1
+        return dgrid4, dposes
 
 
 class GridOp(torch.autograd.Function):

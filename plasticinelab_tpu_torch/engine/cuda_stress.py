@@ -25,18 +25,20 @@ particle against 144 B of input.
 
 The wrapper takes the plain version only for a CPU tensor; for a CUDA
 tensor it launches the kernel (float32, contiguous) or raises, and so does
-the backward. `launches` counts kernel launches.
+the backward. `launches` (the counter group `cuda_stress`) counts kernel
+launches; each launch runs in a `plb.kernel.<name>` span.
 """
 from __future__ import annotations
 
 import torch
 
 from ..config.spec import SceneSpec
+from ..utils.profiling import counter_group, span
 from . import cuda_build as cb
 from .state import Materials
 from .svd3 import Svd3, gap_mode
 
-launches = {"stress_affine": 0, "stress_affine_bwd": 0}
+launches = counter_group("cuda_stress", ("stress_affine", "stress_affine_bwd"))
 
 
 def reset_launches() -> None:
@@ -95,37 +97,39 @@ def _consts(scene: SceneSpec, mats: Materials):
 
 
 def _launch_fwd(scene: SceneSpec, mats: Materials, C, F):
-    cb.require_kernel_input(C, "C")
-    cb.require_kernel_input(F, "F")
-    new_F = torch.empty_like(F)
-    affine = torch.empty_like(C)
-    err = cb.library().plb_stress_affine(
-        C.data_ptr(), F.data_ptr(), new_F.data_ptr(), affine.data_ptr(), C.shape[0],
-        *_consts(scene, mats), C.device.index, cb.stream_of(C))
-    cb.check(err, "stress_affine")
-    launches["stress_affine"] += 1
-    return new_F, affine
+    with span("plb.kernel.stress_affine"):
+        cb.require_kernel_input(C, "C")
+        cb.require_kernel_input(F, "F")
+        new_F = torch.empty_like(F)
+        affine = torch.empty_like(C)
+        err = cb.library().plb_stress_affine(
+            C.data_ptr(), F.data_ptr(), new_F.data_ptr(), affine.data_ptr(), C.shape[0],
+            *_consts(scene, mats), C.device.index, cb.stream_of(C))
+        cb.check(err, "stress_affine")
+        launches["stress_affine"] += 1
+        return new_F, affine
 
 
 def stress_affine_bwd(scene: SceneSpec, mats: Materials, C, F, g_new_F, g_affine):
     """The K2 kernel: cotangents of (new_F, affine) -> (gC, gF), the
     VJP of `stress_affine_plain` at (C, F). CUDA tensors only."""
-    _check(C, F)
-    n = C.shape[0]
-    cb.require(g_new_F, "g_new_F", (n, 3, 3), C.device)
-    cb.require(g_affine, "g_affine", (n, 3, 3), C.device)
-    for t, name in ((C, "C"), (F, "F"), (g_new_F, "g_new_F"), (g_affine, "g_affine")):
-        cb.require_kernel_input(t, name)
-    gC = torch.empty_like(C)
-    gF = torch.empty_like(F)
-    mode, eps = gap_mode(C.dtype)
-    err = cb.library().plb_stress_affine_bwd(
-        C.data_ptr(), F.data_ptr(), g_new_F.data_ptr(), g_affine.data_ptr(),
-        gC.data_ptr(), gF.data_ptr(), n, *_consts(scene, mats), mode, eps,
-        C.device.index, cb.stream_of(C))
-    cb.check(err, "stress_affine_bwd")
-    launches["stress_affine_bwd"] += 1
-    return gC, gF
+    with span("plb.kernel.stress_affine_bwd"):
+        _check(C, F)
+        n = C.shape[0]
+        cb.require(g_new_F, "g_new_F", (n, 3, 3), C.device)
+        cb.require(g_affine, "g_affine", (n, 3, 3), C.device)
+        for t, name in ((C, "C"), (F, "F"), (g_new_F, "g_new_F"), (g_affine, "g_affine")):
+            cb.require_kernel_input(t, name)
+        gC = torch.empty_like(C)
+        gF = torch.empty_like(F)
+        mode, eps = gap_mode(C.dtype)
+        err = cb.library().plb_stress_affine_bwd(
+            C.data_ptr(), F.data_ptr(), g_new_F.data_ptr(), g_affine.data_ptr(),
+            gC.data_ptr(), gF.data_ptr(), n, *_consts(scene, mats), mode, eps,
+            C.device.index, cb.stream_of(C))
+        cb.check(err, "stress_affine_bwd")
+        launches["stress_affine_bwd"] += 1
+        return gC, gF
 
 
 class StressAffine(torch.autograd.Function):

@@ -63,21 +63,24 @@ the same autograd Functions. A launch over a leading B counts under
 Each wrapper takes its plain version (differentiable through index_add_
 and gather; it ignores `order`) only for a CPU tensor; for a CUDA tensor it
 launches its kernel (float32, contiguous) or raises, and so do the
-backwards. `launches` counts kernel launches per wrapper.
+backwards. `launches` (the counter group `cuda_transfer`) counts kernel
+launches per wrapper; each launch runs in a `plb.kernel.<wrapper>` span.
 """
 from __future__ import annotations
 
 import torch
 
 from ..config.spec import SceneSpec
+from ..utils.profiling import counter_group, span
 from . import cuda_build as cb
 from .transfer import cell_keys, stencil
 
 WARP = 32  # lanes of a warp: consecutive entries of an env's order that may add as one
 
-launches = {"p2g": 0, "grid_mass": 0, "g2p": 0, "p2g_bwd": 0, "grid_mass_bwd": 0,
-            "g2p_bwd": 0, "p2g_batched": 0, "grid_mass_batched": 0, "g2p_batched": 0,
-            "p2g_bwd_batched": 0, "grid_mass_bwd_batched": 0, "g2p_bwd_batched": 0}
+launches = counter_group("cuda_transfer", (
+    "p2g", "grid_mass", "g2p", "p2g_bwd", "grid_mass_bwd", "g2p_bwd", "p2g_batched",
+    "grid_mass_batched", "g2p_batched", "p2g_bwd_batched", "grid_mass_bwd_batched",
+    "g2p_bwd_batched"))
 
 
 def reset_launches() -> None:
@@ -219,44 +222,46 @@ def _order_ptr(order, x) -> int:
 
 def _launch_p2g(scene: SceneSpec, x, v, affine, order=None):
     """K3 over x (n, 3) -> (G^3, 4), or over B envs x (B, n, 3) -> (B, G^3, 4)."""
-    for t, arg in ((x, "x"), (v, "v"), (affine, "affine")):
-        cb.require_kernel_input(t, arg)
-    sim = scene.simulator
-    B, n = _envs(x)
-    grid = torch.zeros(x.shape[:-2] + (sim.n_grid ** 3, 4), device=x.device,
-                       dtype=torch.float32)
-    err = cb.library().plb_p2g(
-        x.data_ptr(), v.data_ptr(), affine.data_ptr(), _order_ptr(order, x), grid.data_ptr(),
-        n, B, sim.n_grid, sim.inv_dx, sim.dx, sim.p_mass, x.device.index,
-        cb.stream_of(x))
-    name = cb.launch_key("p2g", x)
-    cb.check(err, name)
-    launches[name] += 1
-    return grid
+    with span("plb.kernel.p2g"):
+        for t, arg in ((x, "x"), (v, "v"), (affine, "affine")):
+            cb.require_kernel_input(t, arg)
+        sim = scene.simulator
+        B, n = _envs(x)
+        grid = torch.zeros(x.shape[:-2] + (sim.n_grid ** 3, 4), device=x.device,
+                           dtype=torch.float32)
+        err = cb.library().plb_p2g(
+            x.data_ptr(), v.data_ptr(), affine.data_ptr(), _order_ptr(order, x), grid.data_ptr(),
+            n, B, sim.n_grid, sim.inv_dx, sim.dx, sim.p_mass, x.device.index,
+            cb.stream_of(x))
+        name = cb.launch_key("p2g", x)
+        cb.check(err, name)
+        launches[name] += 1
+        return grid
 
 
 def p2g_bwd(scene: SceneSpec, x, v, affine, ct):
     """The K4 kernel: grid4 cotangent (G^3, 4) -> (dx (n, 3), dv (n, 3),
     daffine (n, 3, 3)), the VJP of `p2g_plain`; with a leading B on every
     tensor, of `p2g_plain_batched`, in one launch. CUDA tensors only."""
-    sim = scene.simulator
-    B, n = _envs(x)
-    _check_particles(x, v, affine)
-    cb.require(ct, "ct", x.shape[:-2] + (sim.n_grid ** 3, 4), x.device)
-    for t, arg in ((x, "x"), (v, "v"), (affine, "affine"), (ct, "ct")):
-        cb.require_kernel_input(t, arg)
-    if ct.data_ptr() % 16:
-        raise ValueError("ct: the kernel reads its 16-byte cells whole, so it takes a 16-byte "
-                         "aligned tensor")
-    gx, gv, gaff = torch.empty_like(x), torch.empty_like(v), torch.empty_like(affine)
-    err = cb.library().plb_p2g_bwd(
-        x.data_ptr(), v.data_ptr(), affine.data_ptr(), ct.data_ptr(), gx.data_ptr(),
-        gv.data_ptr(), gaff.data_ptr(), n, B, sim.n_grid, sim.inv_dx, sim.dx, sim.p_mass,
-        x.device.index, cb.stream_of(x))
-    name = cb.launch_key("p2g_bwd", x)
-    cb.check(err, name)
-    launches[name] += 1
-    return gx, gv, gaff
+    with span("plb.kernel.p2g_bwd"):
+        sim = scene.simulator
+        B, n = _envs(x)
+        _check_particles(x, v, affine)
+        cb.require(ct, "ct", x.shape[:-2] + (sim.n_grid ** 3, 4), x.device)
+        for t, arg in ((x, "x"), (v, "v"), (affine, "affine"), (ct, "ct")):
+            cb.require_kernel_input(t, arg)
+        if ct.data_ptr() % 16:
+            raise ValueError("ct: the kernel reads its 16-byte cells whole, so it takes a 16-byte "
+                             "aligned tensor")
+        gx, gv, gaff = torch.empty_like(x), torch.empty_like(v), torch.empty_like(affine)
+        err = cb.library().plb_p2g_bwd(
+            x.data_ptr(), v.data_ptr(), affine.data_ptr(), ct.data_ptr(), gx.data_ptr(),
+            gv.data_ptr(), gaff.data_ptr(), n, B, sim.n_grid, sim.inv_dx, sim.dx, sim.p_mass,
+            x.device.index, cb.stream_of(x))
+        name = cb.launch_key("p2g_bwd", x)
+        cb.check(err, name)
+        launches[name] += 1
+        return gx, gv, gaff
 
 
 class P2G(torch.autograd.Function):
@@ -277,37 +282,39 @@ class P2G(torch.autograd.Function):
 
 def _launch_grid_mass(scene: SceneSpec, x, order=None):
     """K7 forward over x (n, 3) -> (G^3,), or over x (B, n, 3) -> (B, G^3)."""
-    cb.require_kernel_input(x, "x")
-    sim = scene.simulator
-    B, n = _envs(x)
-    grid = torch.zeros(x.shape[:-2] + (sim.n_grid ** 3,), device=x.device, dtype=torch.float32)
-    err = cb.library().plb_grid_mass(
-        x.data_ptr(), _order_ptr(order, x), grid.data_ptr(), n, B, sim.n_grid, sim.inv_dx,
-        sim.p_mass, x.device.index, cb.stream_of(x))
-    name = cb.launch_key("grid_mass", x)
-    cb.check(err, name)
-    launches[name] += 1
-    return grid
+    with span("plb.kernel.grid_mass"):
+        cb.require_kernel_input(x, "x")
+        sim = scene.simulator
+        B, n = _envs(x)
+        grid = torch.zeros(x.shape[:-2] + (sim.n_grid ** 3,), device=x.device, dtype=torch.float32)
+        err = cb.library().plb_grid_mass(
+            x.data_ptr(), _order_ptr(order, x), grid.data_ptr(), n, B, sim.n_grid, sim.inv_dx,
+            sim.p_mass, x.device.index, cb.stream_of(x))
+        name = cb.launch_key("grid_mass", x)
+        cb.check(err, name)
+        launches[name] += 1
+        return grid
 
 
 def grid_mass_bwd(scene: SceneSpec, x, ct):
     """The K7 backward kernel (the MASS_ONLY form of K4): grid mass
     cotangent (G^3,) -> dx (n, 3), or (B, G^3) -> (B, n, 3) in one launch.
     CUDA tensors only."""
-    sim = scene.simulator
-    B, n = _envs(x)
-    cb.require(x, "x", x.shape[:-1] + (3,), x.device)
-    cb.require(ct, "ct", x.shape[:-2] + (sim.n_grid ** 3,), x.device)
-    cb.require_kernel_input(x, "x")
-    cb.require_kernel_input(ct, "ct")
-    gx = torch.empty_like(x)
-    err = cb.library().plb_grid_mass_bwd(
-        x.data_ptr(), ct.data_ptr(), gx.data_ptr(), n, B, sim.n_grid, sim.inv_dx,
-        sim.p_mass, x.device.index, cb.stream_of(x))
-    name = cb.launch_key("grid_mass_bwd", x)
-    cb.check(err, name)
-    launches[name] += 1
-    return gx
+    with span("plb.kernel.grid_mass_bwd"):
+        sim = scene.simulator
+        B, n = _envs(x)
+        cb.require(x, "x", x.shape[:-1] + (3,), x.device)
+        cb.require(ct, "ct", x.shape[:-2] + (sim.n_grid ** 3,), x.device)
+        cb.require_kernel_input(x, "x")
+        cb.require_kernel_input(ct, "ct")
+        gx = torch.empty_like(x)
+        err = cb.library().plb_grid_mass_bwd(
+            x.data_ptr(), ct.data_ptr(), gx.data_ptr(), n, B, sim.n_grid, sim.inv_dx,
+            sim.p_mass, x.device.index, cb.stream_of(x))
+        name = cb.launch_key("grid_mass_bwd", x)
+        cb.check(err, name)
+        launches[name] += 1
+        return gx
 
 
 class GridMass(torch.autograd.Function):
@@ -329,21 +336,22 @@ class GridMass(torch.autograd.Function):
 def _launch_g2p(scene: SceneSpec, x, grid_v):
     """K5 over x (n, 3) and grid_v (G^3, 3), or over B envs: x (B, n, 3),
     grid_v (B, G^3, 3) -> new_v, new_C, new_x with x's leading shape."""
-    cb.require_kernel_input(x, "x")
-    cb.require_kernel_input(grid_v, "grid_v")
-    sim = scene.simulator
-    B, n = _envs(x)
-    new_v = torch.empty_like(x)
-    new_C = torch.empty(x.shape + (3,), device=x.device, dtype=torch.float32)
-    new_x = torch.empty_like(x)
-    err = cb.library().plb_g2p(
-        x.data_ptr(), grid_v.data_ptr(), new_v.data_ptr(), new_C.data_ptr(),
-        new_x.data_ptr(), n, B, sim.n_grid, sim.inv_dx, sim.dt,
-        1.0 - 3 * sim.dx, x.device.index, cb.stream_of(x))
-    name = cb.launch_key("g2p", x)
-    cb.check(err, name)
-    launches[name] += 1
-    return new_v, new_C, new_x
+    with span("plb.kernel.g2p"):
+        cb.require_kernel_input(x, "x")
+        cb.require_kernel_input(grid_v, "grid_v")
+        sim = scene.simulator
+        B, n = _envs(x)
+        new_v = torch.empty_like(x)
+        new_C = torch.empty(x.shape + (3,), device=x.device, dtype=torch.float32)
+        new_x = torch.empty_like(x)
+        err = cb.library().plb_g2p(
+            x.data_ptr(), grid_v.data_ptr(), new_v.data_ptr(), new_C.data_ptr(),
+            new_x.data_ptr(), n, B, sim.n_grid, sim.inv_dx, sim.dt,
+            1.0 - 3 * sim.dx, x.device.index, cb.stream_of(x))
+        name = cb.launch_key("g2p", x)
+        cb.check(err, name)
+        launches[name] += 1
+        return new_v, new_C, new_x
 
 
 def _check_g2p(scene: SceneSpec, x, grid_v):
@@ -359,25 +367,26 @@ def g2p_bwd(scene: SceneSpec, x, grid_v, ct_v, ct_C, ct_x, order=None):
     with a leading B on every tensor, of `g2p_plain_batched`, in one launch.
     It scatters d grid_v walking `order`; dx does not depend on it. CUDA
     tensors only."""
-    sim = scene.simulator
-    B, n = _envs(x)
-    _check_g2p(scene, x, grid_v)
-    for t, arg, shape in ((ct_v, "ct_v", x.shape), (ct_C, "ct_C", x.shape + (3,)),
-                          (ct_x, "ct_x", x.shape)):
-        cb.require(t, arg, shape, x.device)
-    for t, arg in ((x, "x"), (grid_v, "grid_v"), (ct_v, "ct_v"), (ct_C, "ct_C"),
-                   (ct_x, "ct_x")):
-        cb.require_kernel_input(t, arg)
-    gx = torch.empty_like(x)
-    g_grid = torch.zeros_like(grid_v)
-    err = cb.library().plb_g2p_bwd(
-        x.data_ptr(), grid_v.data_ptr(), ct_v.data_ptr(), ct_C.data_ptr(),
-        ct_x.data_ptr(), _order_ptr(order, x), gx.data_ptr(), g_grid.data_ptr(), n, B,
-        sim.n_grid, sim.inv_dx, sim.dt, 1.0 - 3 * sim.dx, x.device.index, cb.stream_of(x))
-    name = cb.launch_key("g2p_bwd", x)
-    cb.check(err, name)
-    launches[name] += 1
-    return gx, g_grid
+    with span("plb.kernel.g2p_bwd"):
+        sim = scene.simulator
+        B, n = _envs(x)
+        _check_g2p(scene, x, grid_v)
+        for t, arg, shape in ((ct_v, "ct_v", x.shape), (ct_C, "ct_C", x.shape + (3,)),
+                              (ct_x, "ct_x", x.shape)):
+            cb.require(t, arg, shape, x.device)
+        for t, arg in ((x, "x"), (grid_v, "grid_v"), (ct_v, "ct_v"), (ct_C, "ct_C"),
+                       (ct_x, "ct_x")):
+            cb.require_kernel_input(t, arg)
+        gx = torch.empty_like(x)
+        g_grid = torch.zeros_like(grid_v)
+        err = cb.library().plb_g2p_bwd(
+            x.data_ptr(), grid_v.data_ptr(), ct_v.data_ptr(), ct_C.data_ptr(),
+            ct_x.data_ptr(), _order_ptr(order, x), gx.data_ptr(), g_grid.data_ptr(), n, B,
+            sim.n_grid, sim.inv_dx, sim.dt, 1.0 - 3 * sim.dx, x.device.index, cb.stream_of(x))
+        name = cb.launch_key("g2p_bwd", x)
+        cb.check(err, name)
+        launches[name] += 1
+        return gx, g_grid
 
 
 class G2P(torch.autograd.Function):

@@ -47,6 +47,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..config.spec import SceneSpec
+from ..utils.profiling import span
 from . import cuda_gridop, cuda_stress, cuda_transfer
 from . import primitives as prim
 from .state import Controls, Materials, SimState
@@ -130,11 +131,12 @@ def fk_step(scene: SceneSpec, poses, ctrl: Controls):
     if not scene.primitives:
         return poses
     pos_f, rot_f, gap_f = poses
-    out = [prim.forward_kinematics(p, pos_f[..., i, :], rot_f[..., i, :], gap_f[..., i],
-                                   ctrl.v[..., i, :], ctrl.w[..., i, :], ctrl.gap_vel[..., i])
-           for i, p in enumerate(scene.primitives)]
-    return (torch.stack([o[0] for o in out], dim=-2), torch.stack([o[1] for o in out], dim=-2),
-            torch.stack([o[2] for o in out], dim=-1))
+    with span("plb.physics.fk"):
+        out = [prim.forward_kinematics(p, pos_f[..., i, :], rot_f[..., i, :], gap_f[..., i],
+                                       ctrl.v[..., i, :], ctrl.w[..., i, :], ctrl.gap_vel[..., i])
+               for i, p in enumerate(scene.primitives)]
+        return (torch.stack([o[0] for o in out], dim=-2),
+                torch.stack([o[1] for o in out], dim=-2), torch.stack([o[2] for o in out], dim=-1))
 
 
 def substep(scene: SceneSpec, mats: Materials, state: SimState, ctrl: Controls,
@@ -169,9 +171,10 @@ def env_step_with_grid_m(scene: SceneSpec, mats: Materials, state: SimState,
                          action, softness: float, ops: Ops = KERNEL_OPS):
     """env_step plus the final state's grid mass for the loss:
     (new_state, grid_m (G^3,)), the mass P2G too in the entry state's order."""
-    order = cell_order(scene, state.x)
-    state = env_step(scene, mats, state, action, softness, ops, order)
-    return state, ops.grid_mass(scene, state.x, order)
+    with span("plb.physics"):
+        order = cell_order(scene, state.x)
+        state = env_step(scene, mats, state, action, softness, ops, order)
+        return state, ops.grid_mass(scene, state.x, order)
 
 
 def substep_batched(scene: SceneSpec, mats: Materials, states: SimState, ctrl: Controls,
@@ -199,16 +202,18 @@ def env_step_batched(scene: SceneSpec, mats: Materials, states: SimState, action
     on the full grid: no crop or windows, and of the sort only the order,
     each env's `cell_order` at entry, which all substeps and the mass P2G
     walk)."""
-    x = states.x
-    B = x.shape[0]
-    order = cell_order(scene, x)
-    ctrl = make_controls_batched(scene, actions, x.device, x.dtype)
-    softness = torch.as_tensor(softness, dtype=x.dtype, device=x.device).expand(B).contiguous()
-    for _ in range(scene.simulator.substeps):
-        states = substep_batched(scene, mats, states, ctrl, softness, ops, order)
-    if want_grid_m:
-        return states, ops.grid_mass(scene, states.x, order)
-    return states
+    with span("plb.physics"):
+        x = states.x
+        B = x.shape[0]
+        order = cell_order(scene, x)
+        ctrl = make_controls_batched(scene, actions, x.device, x.dtype)
+        softness = torch.as_tensor(softness, dtype=x.dtype,
+                                   device=x.device).expand(B).contiguous()
+        for _ in range(scene.simulator.substeps):
+            states = substep_batched(scene, mats, states, ctrl, softness, ops, order)
+        if want_grid_m:
+            return states, ops.grid_mass(scene, states.x, order)
+        return states
 
 
 # Bytes one substep keeps alive for the backward when nothing is recomputed

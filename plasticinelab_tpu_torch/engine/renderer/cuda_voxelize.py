@@ -29,8 +29,9 @@ with shifts and masks, which int32 serves.
 
 The wrapper takes the plain version only for a CPU tensor; for a CUDA
 tensor it launches the kernel (float32 positions, int32 colours,
-contiguous) or raises. `launches` counts kernel launches: a launch on
-particles (B, n, 3) (B = 1 too) counts under `voxelize_batched`.
+contiguous) or raises. `launches` (the counter group `cuda_voxelize`)
+counts kernel launches: a launch on particles (B, n, 3) (B = 1 too) counts
+under `voxelize_batched`. A launch runs in a `plb.kernel.voxelize` span.
 """
 from __future__ import annotations
 
@@ -40,9 +41,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ...utils.profiling import counter_group, span
 from .. import cuda_build as cb
 
-launches = {"voxelize": 0, "voxelize_batched": 0}
+launches = counter_group("cuda_voxelize", ("voxelize", "voxelize_batched"))
 
 CHUNK = 128  # offsets per step of the plain version
 
@@ -152,25 +154,27 @@ def launch_shape(res, n: int, B: int, sms: int) -> Tuple[bool, int, int]:
 
 
 def _launch(p, color, res, bake_size: int, dist_scale: float):
-    cb.require_kernel_input(p, "p")
-    if color.dtype != torch.int32 or not color.is_contiguous():
-        raise TypeError("color: the kernel takes contiguous int32")
-    pb = p if p.dim() == 3 else p[None]
-    B, n = pb.shape[:2]
-    rx, ry, rz = res
-    table = _device_offsets(bake_size, dist_scale, p.device)
-    offs = offsets(bake_size, dist_scale)
-    sort, shift, chunk = launch_shape(res, n, B, _sms(p.device))
-    ordered = torch.empty((B, n, 4) if sort else (0,), dtype=torch.float32, device=p.device)
-    count = torch.empty((B,), dtype=torch.int32, device=p.device)
-    vol = torch.empty((B, rx * ry * rz), dtype=torch.int32, device=p.device)
-    err = cb.library().plb_voxelize(
-        pb.data_ptr(), color.data_ptr(), table.data_ptr(), ordered.data_ptr(), count.data_ptr(),
-        vol.data_ptr(), n, B, table.shape[0], rx, ry, rz, int(offs.min()), int(offs.max()),
-        int(sort), shift, chunk, 255.0 * dist_scale, p.device.index, cb.stream_of(p))
-    cb.check(err, "voxelize")
-    launches[cb.launch_key("voxelize", p)] += 1
-    return vol if p.dim() == 3 else vol[0]
+    with span("plb.kernel.voxelize"):
+        cb.require_kernel_input(p, "p")
+        if color.dtype != torch.int32 or not color.is_contiguous():
+            raise TypeError("color: the kernel takes contiguous int32")
+        pb = p if p.dim() == 3 else p[None]
+        B, n = pb.shape[:2]
+        rx, ry, rz = res
+        table = _device_offsets(bake_size, dist_scale, p.device)
+        offs = offsets(bake_size, dist_scale)
+        sort, shift, chunk = launch_shape(res, n, B, _sms(p.device))
+        ordered = torch.empty((B, n, 4) if sort else (0,), dtype=torch.float32, device=p.device)
+        count = torch.empty((B,), dtype=torch.int32, device=p.device)
+        vol = torch.empty((B, rx * ry * rz), dtype=torch.int32, device=p.device)
+        err = cb.library().plb_voxelize(
+            pb.data_ptr(), color.data_ptr(), table.data_ptr(), ordered.data_ptr(),
+            count.data_ptr(), vol.data_ptr(), n, B, table.shape[0], rx, ry, rz,
+            int(offs.min()), int(offs.max()), int(sort), shift, chunk, 255.0 * dist_scale,
+            p.device.index, cb.stream_of(p))
+        cb.check(err, "voxelize")
+        launches[cb.launch_key("voxelize", p)] += 1
+        return vol if p.dim() == 3 else vol[0]
 
 
 def voxelize(p, color, res: Tuple[int, int, int], bake_size: int, dist_scale: float):

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ...config.spec import SceneSpec
+from ...utils import profiling
 from .. import primitives as prim_mod
 from . import cuda_voxelize
 
@@ -54,6 +55,8 @@ LIGHT_COLOR = (1.0, 1.0, 1.0)
 SYNC_EVERY = 16      # loop steps between checks that any ray is active
 LANE_CAP = 262_144   # rays per pass for frames under 256^2 (renderer.py:1046)
 F32 = torch.float32
+
+counts = profiling.counter_group("render", ("march_iters",))   # loop steps `_march` ran
 
 
 def obs_scene(scene: SceneSpec, res: int, spp: int) -> SceneSpec:
@@ -229,37 +232,39 @@ def _march(pack9, res, bbox, thr, h, vox, o, d, t0, tfar, active0, refine, env=N
     cell's distance to the surface. Far from the surface a ray skips (D - 1)
     voxels; in near cells it samples at h, the reference marcher's minimum
     step (renderer.py:288)."""
-    R = o.shape[0]
-    hit = torch.zeros(R, dtype=torch.bool, device=o.device)
-    thit = torch.full((R,), float("inf"), dtype=F32, device=o.device)
-    lanes = active0.nonzero().squeeze(1)
-    if lanes.numel() == 0:
+    with profiling.span("plb.render.march"):
+        R = o.shape[0]
+        hit = torch.zeros(R, dtype=torch.bool, device=o.device)
+        thit = torch.full((R,), float("inf"), dtype=F32, device=o.device)
+        lanes = active0.nonzero().squeeze(1)
+        if lanes.numel() == 0:
+            return hit, thit
+        o, d, t, tfar = o[lanes], d[lanes], t0[lanes], tfar[lanes]
+        if env is None:
+            b0, span, row0 = bbox[0], bbox[1] - bbox[0], None
+        else:
+            box = bbox[env[lanes]]
+            b0, span = box[:, 0], box[:, 1] - box[:, 0]
+            row0 = env[lanes].to(torch.int32) * (res[0] * res[1] * res[2])
+        active = torch.ones(lanes.shape[0], dtype=torch.bool, device=o.device)
+        hit_c = torch.zeros_like(active)
+        thit_c = torch.full_like(t, float("inf"))
+        for j in range(cap):
+            if j % SYNC_EVERY == 0 and not bool(active.any()):
+                break
+            counts["march_iters"] += 1
+            s, v = _sample_s(pack9, res, b0, span, thr, o + d * t[:, None], row0)
+            found = active & (s < 0)
+            thit_c = torch.where(found, t, thit_c)
+            hit_c = hit_c | found
+            step = torch.clamp((v[..., 8] - 1.0) * vox, min=h)
+            t = torch.where(active & ~found, t + step, t)
+            active = active & ~found & (t < tfar)
+        if refine:
+            thit_c = _refine(pack9, res, b0, span, thr, h, o, d, hit_c, thit_c, row0)
+        hit[lanes] = hit_c
+        thit[lanes] = thit_c
         return hit, thit
-    o, d, t, tfar = o[lanes], d[lanes], t0[lanes], tfar[lanes]
-    if env is None:
-        b0, span, row0 = bbox[0], bbox[1] - bbox[0], None
-    else:
-        box = bbox[env[lanes]]
-        b0, span = box[:, 0], box[:, 1] - box[:, 0]
-        row0 = env[lanes].to(torch.int32) * (res[0] * res[1] * res[2])
-    active = torch.ones(lanes.shape[0], dtype=torch.bool, device=o.device)
-    hit_c = torch.zeros_like(active)
-    thit_c = torch.full_like(t, float("inf"))
-    for j in range(cap):
-        if j % SYNC_EVERY == 0 and not bool(active.any()):
-            break
-        s, v = _sample_s(pack9, res, b0, span, thr, o + d * t[:, None], row0)
-        found = active & (s < 0)
-        thit_c = torch.where(found, t, thit_c)
-        hit_c = hit_c | found
-        step = torch.clamp((v[..., 8] - 1.0) * vox, min=h)
-        t = torch.where(active & ~found, t + step, t)
-        active = active & ~found & (t < tfar)
-    if refine:
-        thit_c = _refine(pack9, res, b0, span, thr, h, o, d, hit_c, thit_c, row0)
-    hit[lanes] = hit_c
-    thit[lanes] = thit_c
-    return hit, thit
 
 
 def _refine(pack, res, b0, span, thr, h, o, d, hit, thit, row0, K2=8):
@@ -422,17 +427,18 @@ class Renderer:
         (B, 2, 3), the poses (B, k, ...), env b's rows of sdf_pack and
         col_pack start at b * prod(voxel_res); the goal's textures are
         shared. host_bbox as in `frame_bbox`."""
-        dev = self.device
-        x = torch.as_tensor(x, device=dev).to(F32)
-        bbox = self.frame_bbox(x, host_bbox)
-        colors = torch.as_tensor(colors, device=dev).to(torch.int32).contiguous()
-        sdf, col = self._voxelize_impl(x, colors, bbox[..., 0, :])
-        sdf_pack, sdf_tight, col_pack = self._pack_main(sdf, col)
-        tgt_pack, tgt_tight = self._tgt_packed
-        B, k = sdf.shape[0], len(self.scene.primitives)
-        poses = tuple(torch.as_tensor(t, device=dev).to(F32).reshape(B, k, *tail)
-                      for t, tail in ((prim_pos, (3,)), (prim_rot, (4,)), (prim_gap, ())))
-        return sdf_pack, sdf_tight, col_pack, bbox.reshape(B, 2, 3), tgt_pack, tgt_tight, poses
+        with profiling.span("plb.render.textures"):
+            dev = self.device
+            x = torch.as_tensor(x, device=dev).to(F32)
+            bbox = self.frame_bbox(x, host_bbox)
+            colors = torch.as_tensor(colors, device=dev).to(torch.int32).contiguous()
+            sdf, col = self._voxelize_impl(x, colors, bbox[..., 0, :])
+            sdf_pack, sdf_tight, col_pack = self._pack_main(sdf, col)
+            tgt_pack, tgt_tight = self._tgt_packed
+            B, k = sdf.shape[0], len(self.scene.primitives)
+            poses = tuple(torch.as_tensor(t, device=dev).to(F32).reshape(B, k, *tail)
+                          for t, tail in ((prim_pos, (3,)), (prim_rot, (4,)), (prim_gap, ())))
+            return sdf_pack, sdf_tight, col_pack, bbox.reshape(B, 2, 3), tgt_pack, tgt_tight, poses
 
     def _prepare_textures(self, x, colors, prim_pos, prim_rot, prim_gap, host_bbox=True):
         """`_textures` in the rank of x: one env's (x (n, 3)) without the env
@@ -496,27 +502,28 @@ class Renderer:
         """Primitive sphere trace, <= 200 steps from the bounding-sphere
         entry (reference :231-259) -> (dist, sdf value, sdf id); poses per
         ray (R, k, ...)."""
-        dist = self._prim_bound_entry(poses, o, d)
-        R = o.shape[0]
-        sdf_val = torch.full((R,), INF, dtype=F32, device=o.device)
-        sdf_id = torch.zeros(R, dtype=torch.int32, device=o.device)
-        lanes = (alive & (dist < DIST_LIMIT)).nonzero().squeeze(1)
-        if lanes.numel() == 0:
+        with profiling.span("plb.render.sphere_trace"):
+            dist = self._prim_bound_entry(poses, o, d)
+            R = o.shape[0]
+            sdf_val = torch.full((R,), INF, dtype=F32, device=o.device)
+            sdf_id = torch.zeros(R, dtype=torch.int32, device=o.device)
+            lanes = (alive & (dist < DIST_LIMIT)).nonzero().squeeze(1)
+            if lanes.numel() == 0:
+                return dist, sdf_val, sdf_id
+            oc, dc, t = o[lanes], d[lanes], dist[lanes]
+            val, sid = sdf_val[lanes], sdf_id[lanes]
+            poses = tuple(a[lanes] for a in poses)
+            active = torch.ones(lanes.shape[0], dtype=torch.bool, device=o.device)
+            for j in range(200):
+                if j % SYNC_EVERY == 0 and not bool(active.any()):
+                    break
+                sv, si = self._prim_sdf_all(poses, oc + t[:, None] * dc)
+                val = torch.where(active, sv, val)
+                sid = torch.where(active, si, sid)
+                t = torch.where(active, t + sv, t)
+                active = active & (t < DIST_LIMIT) & (val > 1e-8)
+            dist[lanes], sdf_val[lanes], sdf_id[lanes] = t, val, sid
             return dist, sdf_val, sdf_id
-        oc, dc, t = o[lanes], d[lanes], dist[lanes]
-        val, sid = sdf_val[lanes], sdf_id[lanes]
-        poses = tuple(a[lanes] for a in poses)
-        active = torch.ones(lanes.shape[0], dtype=torch.bool, device=o.device)
-        for j in range(200):
-            if j % SYNC_EVERY == 0 and not bool(active.any()):
-                break
-            sv, si = self._prim_sdf_all(poses, oc + t[:, None] * dc)
-            val = torch.where(active, sv, val)
-            sid = torch.where(active, si, sid)
-            t = torch.where(active, t + sv, t)
-            active = active & (t < DIST_LIMIT) & (val > 1e-8)
-        dist[lanes], sdf_val[lanes], sdf_id[lanes] = t, val, sid
-        return dist, sdf_val, sdf_id
 
     def _march_shape(self, textures, env, o, d, active, refine):
         """The plasticine SDF march (reference :263-289) over the rays in

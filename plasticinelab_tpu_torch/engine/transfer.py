@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..config.spec import SceneSpec
+from ..utils.profiling import span
 
 _TAPS = [(a, b, c) for a in range(3) for b in range(3) for c in range(3)]
 
@@ -68,5 +69,5 @@ def cell_order(scene: SceneSpec, x: torch.Tensor) -> torch.Tensor:
     gradient flows through it. The transfers take it as `order`; they give
     the same sums for any permutation, so an order computed from earlier
     positions stays valid and only costs the kernels time."""
-    with torch.no_grad():
+    with span("plb.physics.cell_order"), torch.no_grad():
         return torch.argsort(cell_keys(scene, x), dim=-1, stable=True).to(torch.int32)

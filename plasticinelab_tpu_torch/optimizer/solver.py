@@ -28,7 +28,6 @@ import torch
 from ..engine import mpm
 from ..engine.sim import PhysicsEnv, rollout_losses
 from ..utils import checkpoint as ckpt
-from ..utils.timer import Timer
 from .optim import OPTIMS, OptimizerConfig
 
 
@@ -102,9 +101,7 @@ class Solver:
         actions = optim.parameters.copy()
         for it in range(start_iter, self.cfg.n_iters):
             self.params = actions.copy()
-            with Timer(f"[solver] iter {it}", print_on_exit=False) as t:
-                loss, grad = forward(env_state["state"], actions)
-            self.last_iter_seconds = t.elapsed
+            loss, grad = forward(env_state["state"], actions)
             if loss < best_loss:
                 best_loss, best_action = loss, actions.copy()
             actions = optim.step(grad)

@@ -40,6 +40,7 @@ from ..engine.renderer.renderer import obs_scene, torch_sampler
 from ..engine.sim import load_target_density, observation
 from ..engine.state import SimState, default_materials, initial_states, scene_dtype
 from ..envs.env import SPEC_DIR
+from ..utils.profiling import span
 
 __all__ = ["VecPlasticineEnv"]
 
@@ -123,14 +124,16 @@ class VecPlasticineEnv:
             self.obs_shape = (image_obs_res, image_obs_res, 3)
 
     def _loss(self, states: SimState, grid_m):
-        return losses_mod.loss_and_components(self.scene, self.loss_state, states, grid_m)
+        with span("plb.loss"):
+            return losses_mod.loss_and_components(self.scene, self.loss_state, states, grid_m)
 
     def _observe(self, states: SimState) -> torch.Tensor:
-        if self.obs_mode == "state":
-            return observation(self.scene, states)
-        img = self._obs_fn(states.x.to(torch.float32), self._colors, states.prim_pos,
-                           states.prim_rot, states.prim_gap)
-        return (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
+        with span("plb.observe"):
+            if self.obs_mode == "state":
+                return observation(self.scene, states)
+            img = self._obs_fn(states.x.to(torch.float32), self._colors, states.prim_pos,
+                               states.prim_rot, states.prim_gap)
+            return (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
 
     def reset(self) -> torch.Tensor:
         self.states = self._init_states
@@ -144,15 +147,17 @@ class VecPlasticineEnv:
 
     def step(self, actions):
         """actions (B, action_dim): a tensor or an array."""
-        with torch.no_grad():
-            self.states, grid_m = mpm.env_step_batched(
-                self.scene, self.mats, self.states, actions, self._softness, want_grid_m=True)
-            info = self._loss(self.states, grid_m)
-            obs = self._observe(self.states)
-            loss, iou = info["loss"], info["iou"]
-            reward = self._start_loss - loss
-            inc = torch.clamp((iou - self._init_iou) / (self._target_iou - self._init_iou),
-                              0.0, 1.0)
-        self._t += 1
-        done = torch.full((self.batch,), self._t >= self.horizon, device=self.device)
-        return obs, reward, done, {"loss": loss, "iou": iou, "incremental_iou": inc}
+        with span("plb.env.step"):
+            with torch.no_grad():
+                self.states, grid_m = mpm.env_step_batched(
+                    self.scene, self.mats, self.states, actions, self._softness,
+                    want_grid_m=True)
+                info = self._loss(self.states, grid_m)
+                obs = self._observe(self.states)
+                loss, iou = info["loss"], info["iou"]
+                reward = self._start_loss - loss
+                inc = torch.clamp((iou - self._init_iou) / (self._target_iou - self._init_iou),
+                                  0.0, 1.0)
+            self._t += 1
+            done = torch.full((self.batch,), self._t >= self.horizon, device=self.device)
+            return obs, reward, done, {"loss": loss, "iou": iou, "incremental_iou": inc}
