@@ -15,10 +15,13 @@ Conventions carried over from the reference:
 from __future__ import annotations
 
 import math
+import struct
+from typing import Dict
 
 import torch
 
 from ..config.spec import PrimitiveSpec
+from ..utils.profiling import counter_group
 from .quat import inv_trans, qmul, qrot, quat_conj, w2quat
 
 __all__ = [
@@ -35,8 +38,27 @@ def _normalize(x, eps=1e-14):
     return x / _length(x, eps)[..., None]
 
 
-def _vec(like, *vals):
-    return torch.tensor(vals, dtype=like.dtype, device=like.device)
+# the constant vectors of the shapes, built once per values, dtype and device
+_consts: Dict[tuple, torch.Tensor] = {}
+counts = counter_group("primitives", ("consts_built", "consts_reused"))
+
+
+def _const(like, *vals):
+    """The vector `vals` in `like`'s dtype on its device, the same tensor on
+    every call: `torch.tensor` on a card copies from pageable host memory and
+    waits for the stream to drain, so a constant is uploaded only the first
+    time. Keyed by the values' float64 bits (0.0 and -0.0 differ). Built
+    outside inference mode, so that autograd may save it later; never
+    modified in place."""
+    key = (struct.pack(f"{len(vals)}d", *vals), like.dtype, like.device)
+    out = _consts.get(key)
+    if out is None:
+        with torch.inference_mode(False):
+            out = _consts[key] = torch.tensor(vals, dtype=like.dtype, device=like.device)
+        counts["consts_built"] += 1
+    else:
+        counts["consts_reused"] += 1
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -61,7 +83,7 @@ def _chopsticks_parts(spec: PrimitiveSpec, p, gap):
     gap = torch.as_tensor(gap, dtype=p.dtype, device=p.device)
     zero = torch.zeros_like(gap)
     delta = torch.stack([gap / 2, zero, zero], dim=-1)
-    pp = p - _vec(p, 0.0, -spec.h / 2, 0.0)
+    pp = p - _const(p, 0.0, -spec.h / 2, 0.0)
     return pp - delta, pp + delta
 
 
@@ -80,7 +102,7 @@ def _cylinder_sdf(spec: PrimitiveSpec, p):
 def _cylinder_normal(spec: PrimitiveSpec, p):
     xz = torch.stack([p[..., 0], p[..., 2]], dim=-1)
     l = _length(xz)
-    d = torch.stack([l, torch.abs(p[..., 1])], dim=-1) - _vec(p, spec.h, spec.r)
+    d = torch.stack([l, torch.abs(p[..., 1])], dim=-1) - _const(p, spec.h, spec.r)
     f = (d[..., 0] > d[..., 1]).to(p.dtype)
     inside = (torch.maximum(d[..., 0], d[..., 1]) <= 0.0).to(p.dtype)
     n2 = torch.clamp(d, min=0.0) + inside[..., None] * torch.stack([f, 1.0 - f], dim=-1)
@@ -113,7 +135,7 @@ def _torus_normal(spec: PrimitiveSpec, p):
 
 
 def _box_sdf(spec: PrimitiveSpec, p):
-    q = torch.abs(p) - _vec(p, *spec.size)
+    q = torch.abs(p) - _const(p, *spec.size)
     out = _length(torch.clamp(q, min=0.0))
     return out + torch.clamp(torch.amax(q, dim=-1), max=0.0)
 
@@ -248,13 +270,13 @@ def forward_kinematics(spec: PrimitiveSpec, pos, rot, gap, v, w, gap_vel):
     Base: primive_base.py:117-121; RollingPin: primitives.py:66-80;
     Chopsticks: primitives.py:94-99.
     """
-    lb = _vec(pos, *spec.lower_bound)
-    ub = _vec(pos, *spec.upper_bound)
+    lb = _const(pos, *spec.lower_bound)
+    ub = _const(pos, *spec.upper_bound)
 
     if spec.shape == "RollingPin":
         dw, dth, dy = v[..., 0], v[..., 1], v[..., 2]
-        y_dir = qrot(rot, _vec(pos, 0.0, -1.0, 0.0))
-        x_dir = torch.linalg.cross(_vec(pos, 0.0, 1.0, 0.0).expand_as(y_dir), y_dir)
+        y_dir = qrot(rot, _const(pos, 0.0, -1.0, 0.0))
+        x_dir = torch.linalg.cross(_const(pos, 0.0, 1.0, 0.0).expand_as(y_dir), y_dir)
         x_dir = x_dir * dw[..., None] * 0.03
         x_dir = torch.stack([x_dir[..., 0], dy, x_dir[..., 2]], dim=-1)
         zeros = torch.zeros_like(dth)
@@ -281,7 +303,7 @@ def action_to_velocity(spec: PrimitiveSpec, action, n_substeps):
     zero = action.new_zeros(lead)
     if spec.action_dim == 0:
         return zeros3, zeros3, zero
-    a = action * _vec(action, *spec.action_scale) / n_substeps
+    a = action * _const(action, *spec.action_scale) / n_substeps
     v = a[..., :3]
     w = a[..., 3:6] if spec.action_dim > 3 else zeros3
     gap_vel = a[..., 6] if spec.shape == "Chopsticks" else zero

@@ -1,6 +1,8 @@
 """Port quaternion and primitive math against the TPU package's jnp
 functions in float64: all 7 shapes' sdf, normal, contact response and
 forward kinematics, at the cases of test_primitives.py / test_quat.py.
+The shapes' constant vectors, cached on their device, give bit for bit the
+values and gradients of constants built inline, in float32 and float64.
 
 Tolerance 1e-10 (absolute, on O(1) quantities; the contact response is
 held relative to its largest value): both sides evaluate the same float64
@@ -144,3 +146,72 @@ def test_bounding_radius_matches_reference(kw):
     np.testing.assert_allclose(TP.bounding_radius(tsp, 0.06),
                                float(JP.bounding_radius(jsp, jnp.asarray(0.06))),
                                rtol=1e-6)
+
+
+def _inline_const(like, *vals):
+    return torch.tensor(vals, dtype=like.dtype, device=like.device)
+
+
+def _actuated(kw):
+    """The shape of `kw` with an action and bounds that clamp some poses."""
+    extra = dict(lower_bound=(0.4, 0.0, 0.3), upper_bound=(0.6, 1.0, 0.7))
+    if kw["shape"] == "RollingPin":
+        extra.update(action_dim=3, action_scale=(0.7, 0.005, 0.005))
+    elif "action_dim" not in kw:
+        extra.update(action_dim=6, action_scale=(0.01,) * 3 + (0.015,) * 3)
+    return tspec.PrimitiveSpec(**kw, **extra)
+
+
+def _fk_sdf_normal(sp, dtype):
+    """action -> velocities -> forward kinematics -> sdf, normal at points
+    around the new poses, at 16 envs, with the gradients of a weighted sum
+    to pos, rot, gap, v, w and the action."""
+    rng = np.random.default_rng(30 + len(sp.shape))
+    t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, requires_grad=True)
+    pos = t(rng.random((16, 3)) * 0.5 + 0.25)
+    rot = t(_rand_quat(rng, 16))
+    gap = t(np.full(16, 0.06))
+    action = t(rng.uniform(-20.0, 20.0, (16, sp.action_dim)))
+    v, w, gap_vel = TP.action_to_velocity(sp, action, 19)
+    new = TP.forward_kinematics(sp, pos, rot, gap, v, w, gap_vel)
+    p = new[0][:, None].detach() + torch.tensor(rng.standard_normal((16, 32, 3)) * 0.15,
+                                                dtype=dtype)
+    pose = (new[0][:, None], new[1][:, None], new[2][:, None])
+    outs = (v, w, gap_vel) + new + (TP.sdf(sp, *pose, p), TP.normal(sp, *pose, p))
+    loss = sum((o * torch.tensor(rng.standard_normal(o.shape), dtype=dtype)).sum()
+               for o in outs)
+    ins = (pos, rot, gap, v, w, action)     # w is a constant zero below 6 actions
+    found = iter(torch.autograd.grad(loss, [x for x in ins if x.requires_grad],
+                                     allow_unused=True))
+    return [o.detach() for o in outs], [next(found) if x.requires_grad else None for x in ins]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64], ids=["f32", "f64"])
+@pytest.mark.parametrize("kw", SHAPE_KW, ids=IDS)
+def test_cached_constants_are_the_inline_ones(kw, dtype, monkeypatch):
+    sp = _actuated(kw)
+    _fk_sdf_normal(sp, dtype)                       # builds what the cache lacks
+    built = TP.counts["consts_built"]
+    reused = TP.counts["consts_reused"]
+    outs, grads = _fk_sdf_normal(sp, dtype)
+    assert TP.counts["consts_built"] == built and TP.counts["consts_reused"] > reused
+    monkeypatch.setattr(TP, "_const", _inline_const)
+    ref_outs, ref_grads = _fk_sdf_normal(sp, dtype)
+    for a, b in zip(outs, ref_outs):
+        assert a.dtype == dtype and torch.equal(a, b)
+    for a, b in zip(grads, ref_grads):
+        assert (a is None) == (b is None) and (a is None or torch.equal(a, b))
+    assert grads[0] is not None and grads[-1] is not None
+
+
+def test_constant_first_built_in_inference_mode_takes_a_gradient(monkeypatch):
+    monkeypatch.setattr(TP, "_consts", {})
+    sp = _actuated(SHAPE_KW[0])
+    with torch.inference_mode():
+        TP.action_to_velocity(sp, torch.ones(4, 6, dtype=F64), 19)
+    scale = TP._const(torch.ones((), dtype=F64), *sp.action_scale)
+    assert not scale.is_inference() and not scale.requires_grad
+    action = torch.ones(4, 6, dtype=F64, requires_grad=True)
+    v, w, _ = TP.action_to_velocity(sp, action, 19)
+    (grad,) = torch.autograd.grad((v.sum() + w.sum()), action)
+    assert torch.equal(grad, torch.ones_like(grad) / 19 * _inline_const(grad, *sp.action_scale))

@@ -9,6 +9,8 @@
   `render.march_iters`;
 - `snapshot()` and `reset()` cover the four launch groups and the
   renderer's, the modules' `launches` being the registry's own dicts;
+- the primitives' constants are built once: a second forward kinematics
+  and controls of a scene reuse 3 a primitive and build none;
 - no span name, in a profile or in the package's source, contains
   `Synchronize` or lies outside `plb.`;
 - `trace(path)` writes a chrome trace that holds the spans."""
@@ -20,8 +22,10 @@ import numpy as np
 import pytest
 import torch
 
-from plasticinelab_tpu_torch.engine import cuda_gridop, cuda_stress, cuda_transfer
+from plasticinelab_tpu_torch.engine import cuda_gridop, cuda_stress, cuda_transfer, mpm
+from plasticinelab_tpu_torch.engine import primitives as prim
 from plasticinelab_tpu_torch.engine.renderer import cuda_voxelize, renderer
+from plasticinelab_tpu_torch.envs.env import PlasticineEnv
 from plasticinelab_tpu_torch.parallel import VecPlasticineEnv
 from plasticinelab_tpu_torch.utils import profiling
 
@@ -113,6 +117,25 @@ def test_registry_holds_the_launch_groups():
     profiling.reset()
     assert not any(profiling.snapshot().values())
     assert cuda_transfer.launches["p2g_batched"] == 0 and renderer.counts["march_iters"] == 0
+
+
+def test_primitive_constants_are_built_once():
+    scene = PlasticineEnv.load_scene("move", 1)
+    k = len(scene.primitives)
+    poses = (torch.rand(2, k, 3), torch.rand(2, k, 4), torch.rand(2, k))
+    actions = torch.rand(2, scene.action_dim)
+
+    def fk_and_controls():
+        mpm.fk_step(scene, poses, mpm.make_controls_batched(scene, actions, "cpu",
+                                                            torch.float32))
+        snap = profiling.snapshot()
+        return snap["primitives.consts_built"], snap["primitives.consts_reused"]
+
+    assert profiling.counter_group("primitives", ()) is prim.counts
+    fk_and_controls()
+    built, reused = fk_and_controls()
+    # two bounds a primitive in fk_step, one action scale in the controls
+    assert fk_and_controls() == (built, reused + 3 * k)
 
 
 def _span_names_in_source():
