@@ -19,10 +19,12 @@ where a grid cell's vertical velocity is ~0, a contact's influence at its
 its neighbours, a few hundred of 10,000 particles; a fault of the step
 moves every particle of an env. Positions are compared in grid cells, not
 to their change over the step, which in an env at rest is down to float32
-rounding.
+rounding. A value that is not finite on either side is no rounding: it
+reads NaN through every number, which fails every limit.
 """
 from __future__ import annotations
 
+import math
 import sys
 from typing import Dict, List
 
@@ -32,9 +34,22 @@ import torch
 from reference import mpm
 from reference.render import Replay
 from reference.scene import Scene
+from reference.shapes import has_gap, init_gap
 
 FIELDS = ("x", "v", "C", "F", "pos", "rot", "gap")
 TRIM = 0.05   # share of each env's particles with the largest gaps left out
+
+
+def worst(*values: float) -> float:
+    """The largest of the values, NaN if any is NaN (Python's `max` would
+    pass over it)."""
+    return math.nan if any(math.isnan(v) for v in values) else max(values)
+
+
+def _nan_if_any(gap: torch.Tensor, value: float) -> float:
+    """`value`, or NaN where a gap is NaN: a non-finite particle is never
+    among the few that the bulk leaves out."""
+    return math.nan if bool(torch.isnan(gap).any()) else value
 
 
 def rel_per_env(port, ref, base) -> float:
@@ -59,8 +74,8 @@ def bulk_rel_per_env(port, ref, scale, trim: float = TRIM) -> float:
     gap = (port.double() - ref.double()).flatten(2).norm(dim=2)
     den = scale.double().flatten(2).norm(dim=2)
     idx = _bulk(gap, trim)
-    return float((gap.gather(1, idx).norm(dim=1)
-                  / den.gather(1, idx).norm(dim=1).clamp_min(1e-300)).max())
+    return _nan_if_any(gap, float((gap.gather(1, idx).norm(dim=1)
+                                   / den.gather(1, idx).norm(dim=1).clamp_min(1e-300)).max()))
 
 
 def bulk_rms_per_env(port, ref, unit: float, trim: float = TRIM) -> float:
@@ -68,7 +83,7 @@ def bulk_rms_per_env(port, ref, unit: float, trim: float = TRIM) -> float:
     its particles, in `unit`."""
     gap = (port.double() - ref.double()).flatten(2).norm(dim=2)
     idx = _bulk(gap, trim)
-    return float(gap.gather(1, idx).pow(2).mean(dim=1).sqrt().max() / unit)
+    return _nan_if_any(gap, float(gap.gather(1, idx).pow(2).mean(dim=1).sqrt().max() / unit))
 
 
 def frame_gap(port: torch.Tensor, ref: torch.Tensor) -> float:
@@ -105,7 +120,7 @@ class Reference:
 
     def start_state(self) -> mpm.State:
         """The B envs' start: x0 at rest, F = I, the primitives at their
-        initial poses (host tensors)."""
+        initial poses and gaps (host tensors)."""
         B, n, _ = self.x0.shape
         k = len(self.sc.prims)
         f64 = torch.float64
@@ -115,7 +130,8 @@ class Reference:
             F=torch.eye(3, dtype=f64).expand(B, n, 3, 3),
             pos=torch.tensor([p.init_pos for p in self.sc.prims], dtype=f64).expand(B, k, 3),
             rot=torch.tensor([p.init_rot for p in self.sc.prims], dtype=f64).expand(B, k, 4),
-            gap=torch.zeros(B, k, dtype=f64))
+            gap=torch.tensor([init_gap(p.shape, p.params) for p in self.sc.prims],
+                             dtype=f64).expand(B, k))
 
     def on_device(self, st: mpm.State) -> mpm.State:
         """A host state on the device in the dtype."""
@@ -149,13 +165,19 @@ def compare(ref: Reference, samples: List[dict], start: dict, obs_mode: str,
     if obs_mode != "state":
         out["obs_unequal"] = 0.0
     fields = {f: 0.0 for f in ("F", "v", "C", "pose")}
+    gaps = [i for i, p in enumerate(ref.sc.prims) if has_gap(p.shape)]
+
+    def pose(st):
+        """pos and rot of every primitive, and the gap of those with one."""
+        return torch.cat([st.pos.flatten(1), st.rot.flatten(1), st.gap[:, gaps]], 1)
+
     # the start: the program's start states and reset observation
     x0 = start["x"].double()
     out["start_gap"] = float((x0 - ref.x0.double()).abs().max())
     if obs_mode == "state":
         obs0 = mpm.state_obs(ref.sc, ref.on_device(ref.start_state())).cpu()
-        out["start_gap"] = max(out["start_gap"],
-                               float((start["obs"].double() - obs0.double()).abs().max()))
+        out["start_gap"] = worst(out["start_gap"],
+                                 float((start["obs"].double() - obs0.double()).abs().max()))
     eye = torch.eye(3, dtype=torch.float64)
     for s in samples:
         st_in = host_state(s["state_in"])
@@ -163,37 +185,35 @@ def compare(ref: Reference, samples: List[dict], start: dict, obs_mode: str,
         dev_in = ref.on_device(st_in)
         st, loss, reward, iou, inc = ref.step(dev_in, s["actions"])
         ref_st = mpm.State(*(t.cpu().double() for t in st))
-        # F to the deformation it holds, v and C to their size, the poses to
-        # their change over the step; positions in grid cells
-        fields["F"] = max(fields["F"], bulk_rel_per_env(port.F, ref_st.F, ref_st.F - eye))
-        fields["v"] = max(fields["v"], bulk_rel_per_env(port.v, ref_st.v, ref_st.v))
-        fields["C"] = max(fields["C"], bulk_rel_per_env(port.C, ref_st.C, ref_st.C))
-        pose_p = torch.cat([port.pos.flatten(1), port.rot.flatten(1)], 1)
-        pose_r = torch.cat([ref_st.pos.flatten(1), ref_st.rot.flatten(1)], 1)
-        pose_i = torch.cat([st_in.pos.flatten(1), st_in.rot.flatten(1)], 1)
-        fields["pose"] = max(fields["pose"], rel_per_env(pose_p, pose_r, pose_i))
-        out["x_gap"] = max(out["x_gap"], bulk_rms_per_env(port.x, ref_st.x, ref.sc.dx))
+        # F to the deformation it holds, v and C to their size, the poses
+        # (gaps included) to their change over the step; positions in grid
+        # cells
+        fields["F"] = worst(fields["F"], bulk_rel_per_env(port.F, ref_st.F, ref_st.F - eye))
+        fields["v"] = worst(fields["v"], bulk_rel_per_env(port.v, ref_st.v, ref_st.v))
+        fields["C"] = worst(fields["C"], bulk_rel_per_env(port.C, ref_st.C, ref_st.C))
+        fields["pose"] = worst(fields["pose"], rel_per_env(pose(port), pose(ref_st), pose(st_in)))
+        out["x_gap"] = worst(out["x_gap"], bulk_rms_per_env(port.x, ref_st.x, ref.sc.dx))
         loss, reward, iou, inc = (t.cpu().double() for t in (loss, reward, iou, inc))
         scale = loss.abs()
         # loss and reward relative to the loss; IoU and incremental IoU, in
         # [0, 1], absolute
-        out["loss_gap"] = max(out["loss_gap"],
-                              float(((s["loss"].double() - loss).abs() / scale).max()),
-                              float(((s["reward"].double() - reward).abs() / scale).max()),
-                              float((s["iou"].double() - iou).abs().max()),
-                              float((s["inc"].double() - inc).abs().max()))
+        out["loss_gap"] = worst(out["loss_gap"],
+                                float(((s["loss"].double() - loss).abs() / scale).max()),
+                                float(((s["reward"].double() - reward).abs() / scale).max()),
+                                float((s["iou"].double() - iou).abs().max()),
+                                float((s["inc"].double() - inc).abs().max()))
         if obs_mode == "state":
             # the observation is a gather of the state the step left: the
             # reference gathers it again from that state, to the bit
             obs_ref = mpm.state_obs(ref.sc, port)
-            out["obs_gap"] = max(out["obs_gap"],
-                                 float((s["obs"].double() - obs_ref.double()).abs().max()))
+            out["obs_gap"] = worst(out["obs_gap"],
+                                   float((s["obs"].double() - obs_ref.double()).abs().max()))
         else:
             replay = Replay(s["draws"], batch, envs, ref.device, ref.dtype)
             frames = ref.render.frames(port, replay).cpu()
-            out["obs_gap"] = max(out["obs_gap"], frame_gap(s["obs"], frames))
-            out["obs_unequal"] = max(out["obs_unequal"], frame_unequal(s["obs"], frames))
-    out["state_gap"] = max(fields.values())
+            out["obs_gap"] = worst(out["obs_gap"], frame_gap(s["obs"], frames))
+            out["obs_unequal"] = worst(out["obs_unequal"], frame_unequal(s["obs"], frames))
+    out["state_gap"] = worst(*fields.values())
     print("plbbench: state_gap by field " + " ".join(f"{k} {v!r}" for k, v in fields.items()),
           file=sys.stderr)
     return out

@@ -3,7 +3,8 @@
 Written from PlasticineLab's formulas (plb/engine/mpm_simulator.py p2g
 :157-184, grid_op :189-221, g2p :223-243, substep :245-257, step :365-376;
 von Mises :124-141; primitive contact plb/engine/primitive/primive_base.py
-:82-121; losses plb/engine/losses/loss.py:112-254; observation
+:82-115, kinematics :117-121 and set_velocity :184-192, the shapes' own in
+`shapes/`; losses plb/engine/losses/loss.py:112-254; observation
 plb/envs/env.py:33-41), with the two conventions that the configuration
 states beside them: the stencil's base cell is clamped to [0, G-3] with the
 weights from the unclamped fraction, and grid velocities are clamped to
@@ -22,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from .quat import conj, qmul, qrot, w2quat
-from .shapes import shape_module
+from .shapes import has_gap, shape_module
 
 TAPS = torch.tensor([(a, b, c) for a in range(3) for b in range(3) for c in range(3)])
 
@@ -82,7 +83,12 @@ def svd_proper(F, sweeps: int = 6):
     """F = U diag(s) V^T with det U = det V = +1, the sign on the smallest
     singular value (Taichi's convention, which von Mises' clamp sees): V
     from the eigenvectors of F^T F, u0 and u1 from F V, u2 = u0 x u1. Runs
-    in float32 for dtypes below it, and the factors are cast back."""
+    in float32 for dtypes below it, and the factors are cast back.
+
+    A particle squeezed flat or to a point has an F of rank 1 or 0: where
+    s1 is under sqrt(eps) s0, s1^2 is lost in the rounding of s0^2 and F v1
+    / s1 is 0 / 0 or noise, so u1 (and where s0 is 0, u0 = v0) completes U
+    to a rotation, as Taichi's SVD returns one for any F."""
     work = F if F.dtype in (torch.float32, torch.float64) else F.float()
     shape = work.shape
     Fm = work.reshape(-1, 3, 3)
@@ -94,6 +100,13 @@ def svd_proper(F, sweeps: int = 6):
     sig = torch.sqrt(torch.clamp(lam, min=0.0))
     u0 = FV[:, :, 0] / sig[:, 0:1]
     u1 = FV[:, :, 1] / sig[:, 1:2]
+    flat = sig[:, 1] <= sig[:, 0] * torch.finfo(work.dtype).eps ** 0.5
+    if bool(flat.any()):
+        u0 = torch.where((sig[:, 0] > 0)[:, None], u0, V[:, :, 0])
+        e = torch.eye(3, dtype=work.dtype, device=work.device)
+        axis = torch.where((u0[:, 0].abs() < 0.9)[:, None], e[0], e[1])
+        w = axis - (axis * u0).sum(-1, keepdim=True) * u0
+        u1 = torch.where(flat[:, None], w / w.norm(dim=-1, keepdim=True), u1)
     u2 = torch.linalg.cross(u0, u1, dim=-1)
     s2 = (u2 * FV[:, :, 2]).sum(-1)
     U = torch.stack([u0, u1, u2], -1)
@@ -165,13 +178,14 @@ def collider_v(pos_f, rot_f, pos_f1, rot_f1, p, dt):
 
 def collide(sc, prim, pose_f, pose_f1, softness, gp, v):
     """Contact of one primitive with the grid velocities v at points gp
-    (primive_base.py:91-115); poses and softness per point."""
+    (primive_base.py:91-115); pose_f (pos, rot, gap) and pose_f1 (pos,
+    rot), and softness, per point."""
     shape = shape_module(prim.shape)
-    (pf, rf), (pf1, rf1) = pose_f, pose_f1
-    dist = shape.sdf(prim.params, pf, rf, gp)
+    (pf, rf, gf), (pf1, rf1) = pose_f, pose_f1
+    dist = shape.sdf(prim.params, pf, rf, gp, gf)
     influence = torch.clamp(torch.exp(-dist * softness), max=1.0)
     cond = ((softness > 0) & (influence > 0.1)) | (dist <= 0)
-    D = shape.normal(prim.params, pf, rf, gp)
+    D = shape.normal(prim.params, pf, rf, gp, gf)
     cv = collider_v(pf, rf, pf1, rf1, gp, sc.dt)
     inp = v - cv
     nc = (inp * D).sum(-1)
@@ -187,7 +201,8 @@ def collide(sc, prim, pose_f, pose_f1, softness, gp, v):
 
 def grid_op(sc, grid, pose_f, pose_f1, softness):
     """grid (b G^3, 4) -> grid velocities (b G^3, 3), computed at the cells
-    with mass only; the others stay 0."""
+    with mass only; the others stay 0. pose_f is (pos, rot, gap) at the
+    substep's start, pose_f1 (pos, rot) at its end, per env."""
     G = sc.n_grid
     dtype, dev = grid.dtype, grid.device
     cells = (grid[:, 3] > 1e-12).nonzero()[:, 0]
@@ -198,7 +213,7 @@ def grid_op(sc, grid, pose_f, pose_f1, softness):
     coord_f = coords.to(dtype)
     gp = coord_f * sc.dx
     for i, prim in enumerate(sc.prims):
-        v = collide(sc, prim, (pose_f[0][env, i], pose_f[1][env, i]),
+        v = collide(sc, prim, (pose_f[0][env, i], pose_f[1][env, i], pose_f[2][env, i]),
                     (pose_f1[0][env, i], pose_f1[1][env, i]), softness[env], gp, v)
     # walls 3 cells thick; on the floor (axis 1) Coulomb friction under a
     # ground friction below 10, a full stop at 10 or more
@@ -239,41 +254,57 @@ def g2p(sc, x, grid_v):
 
 
 def controls(sc, actions):
-    """Actions (b, action_dim) -> per-substep (v (b, k, 3), w (b, k, 3))."""
+    """Actions (b, action_dim) -> per-substep (v (b, k, 3), w (b, k, 3),
+    gap_vel (b, k)): of each primitive's slice a scaled over the substeps,
+    v from a[0:3], w from a[3:6], and for a shape with a gap its velocity
+    from a[6] (Chopsticks' set_velocity, primitives.py:101-109); 0 where
+    absent."""
     a = torch.clamp(actions, -1.0, 1.0)
-    vs, ws, off = [], [], 0
+    vs, ws, gs, off = [], [], [], 0
     for prim in sc.prims:
         zero = a.new_zeros(a.shape[0], 3)
+        no_gap = a.new_zeros(a.shape[0])
         if prim.action_dim == 0:
             vs.append(zero)
             ws.append(zero)
+            gs.append(no_gap)
             continue
         scale = torch.tensor(prim.action_scale, dtype=a.dtype, device=a.device)
         part = a[:, off:off + prim.action_dim] * scale / sc.substeps
         vs.append(part[:, :3])
         ws.append(part[:, 3:6] if prim.action_dim > 3 else zero)
+        gs.append(part[:, 6] if has_gap(prim.shape) else no_gap)
         off += prim.action_dim
-    return torch.stack(vs, 1), torch.stack(ws, 1)
+    return torch.stack(vs, 1), torch.stack(ws, 1), torch.stack(gs, 1)
 
 
-def fk(sc, pos, rot, v, w):
-    """Pose at the next substep (primive_base.py:117-121)."""
+def fk(sc, pos, rot, gap, v, w, gap_vel):
+    """Poses (pos (b, k, 3), rot (b, k, 4), gap (b, k)) at the next substep:
+    each primitive by its shape's own kinematics (`fk` of its module) or by
+    the base rule (primive_base.py:117-121: pos + v, w2quat(w) rot, the gap
+    kept), the position clamped to the primitive's bounds."""
     lo = torch.tensor([p.lower for p in sc.prims], dtype=pos.dtype, device=pos.device)
     hi = torch.tensor([p.upper for p in sc.prims], dtype=pos.dtype, device=pos.device)
-    for prim in sc.prims:
-        if prim.shape in ("RollingPin", "Chopsticks"):
-            raise NotImplementedError(f"the reference has no kinematics of {prim.shape}")
-    return torch.maximum(torch.minimum(pos + v, hi), lo), qmul(w2quat(w), rot)
+    pos1, rot1, gap1 = pos + v, qmul(w2quat(w), rot), gap
+    shapes = [shape_module(p.shape) for p in sc.prims]
+    own = [i for i, shape in enumerate(shapes) if hasattr(shape, "fk")]
+    if own:
+        pos1, rot1, gap1 = (list(t.unbind(1)) for t in (pos1, rot1, gap1))
+        for i in own:
+            pos1[i], rot1[i], gap1[i] = shapes[i].fk(sc.prims[i].params, pos[:, i], rot[:, i],
+                                                     gap[:, i], v[:, i], w[:, i], gap_vel[:, i])
+        pos1, rot1, gap1 = (torch.stack(t, 1) for t in (pos1, rot1, gap1))
+    return torch.maximum(torch.minimum(pos1, hi), lo), rot1, gap1
 
 
 def substep(sc, st: State, ctrl, softness) -> State:
     b, n = st.x.shape[:2]
     new_F, affine = stress_affine(sc, st.C, st.F)
     grid = p2g(sc, st.x, st.v, affine)
-    pos1, rot1 = fk(sc, st.pos, st.rot, *ctrl)
-    grid_v = grid_op(sc, grid, (st.pos, st.rot), (pos1, rot1), softness)
+    pos1, rot1, gap1 = fk(sc, st.pos, st.rot, st.gap, *ctrl)
+    grid_v = grid_op(sc, grid, (st.pos, st.rot, st.gap), (pos1, rot1), softness)
     v, C, x = g2p(sc, st.x, grid_v)
-    return State(x, v, C, new_F, pos1, rot1, st.gap)
+    return State(x, v, C, new_F, pos1, rot1, gap1)
 
 
 def env_step(sc, st: State, actions, softness) -> State:
@@ -301,7 +332,8 @@ def loss(sc, target, target_sdf, st: State):
         if prim.action_dim <= 0:
             continue
         d = torch.clamp(shape_module(prim.shape).sdf(prim.params, st.pos[:, i, None],
-                                                     st.rot[:, i, None], st.x), min=0.0)
+                                                     st.rot[:, i, None], st.x,
+                                                     st.gap[:, i, None]), min=0.0)
         if sc.soft_contact:
             w = 1.0 / (1.0 + d * d * 10000.0)
             d = (d * w).sum(-1) / w.sum(-1)
@@ -319,6 +351,6 @@ def state_obs(sc, st: State):
     parts = [xv]
     for i, prim in enumerate(sc.prims):
         parts += [st.pos[:, i], st.rot[:, i]]
-        if prim.shape == "Chopsticks":
+        if has_gap(prim.shape):
             parts.append(st.gap[:, i:i + 1])
     return torch.cat(parts, dim=-1)

@@ -242,20 +242,26 @@ class ObsRenderer:
         frac = torch.clamp(s_lo / den, 0.0, 1.0)
         return torch.where(neg.any(1), base + h * (first + 1).to(self.dtype) - h + h * frac, t)
 
+    @staticmethod
+    def _poses(tex, env):
+        """(pos, rot, gap) of every primitive, per ray of the envs env."""
+        return tex["pos"][env], tex["rot"][env], tex["gap"][env]
+
     def _prim_sdf(self, poses, p):
-        pos, rot = poses
-        vals = [shape_module(pr.shape).sdf(pr.params, pos[:, i], rot[:, i], p)
+        pos, rot, gap = poses
+        vals = [shape_module(pr.shape).sdf(pr.params, pos[:, i], rot[:, i], p, gap[:, i])
                 for i, pr in enumerate(self.sc.prims)]
         return torch.stack(vals, -1).min(-1)
 
     def _sphere_trace(self, poses, o, d, alive):
         """Sphere trace from the first bounding sphere entry, <= 200 steps ->
-        (t, id of the nearest primitive at the last step)."""
-        pos, rot = poses
+        (t, id of the nearest primitive at the last step); poses (pos, rot,
+        gap) per ray."""
+        pos, _, gap = poses
         R = o.shape[0]
         t = torch.full((R,), INF, dtype=self.dtype, device=self.device)
         for i, pr in enumerate(self.sc.prims):
-            rad = shape_module(pr.shape).bounding_radius(pr.params) + 1e-3
+            rad = shape_module(pr.shape).bounding_radius(pr.params, gap[:, i]) + 1e-3
             oc = o - pos[:, i]
             bb = (oc * d).sum(-1)
             c = (oc * oc).sum(-1) - rad * rad
@@ -315,15 +321,15 @@ class ObsRenderer:
         no_plane = closest >= INF
         rough = torch.where(no_plane, torch.full_like(rough, 0.05), rough)
         if self.sc.prims:
-            poses = (tex["pos"][env], tex["rot"][env])
-            t, ids = self._sphere_trace(poses, o, d, alive)
+            pos, rot, gap = self._poses(tex, env)
+            t, ids = self._sphere_trace((pos, rot, gap), o, d, alive)
             hit = alive & (t < closest) & (t < DIST_LIMIT)
             pp = o + t[:, None] * d
             pn = torch.zeros_like(normal)
             pc = torch.zeros_like(color)
             for i, pr in enumerate(self.sc.prims):
                 sel = (ids == i)[:, None]
-                n_i = shape_module(pr.shape).normal(pr.params, poses[0][:, i], poses[1][:, i], pp)
+                n_i = shape_module(pr.shape).normal(pr.params, pos[:, i], rot[:, i], pp, gap[:, i])
                 pn = torch.where(sel, n_i, pn)
                 pc = torch.where(sel, self._t(list(pr.color)), pc)
             closest = torch.where(hit, t, closest)
@@ -346,7 +352,7 @@ class ObsRenderer:
                                              -d[:, 1])
         occ = occ | ((d[:, 1] < 0) & (gd < DIST_LIMIT))
         if self.sc.prims:
-            t, _ = self._sphere_trace((tex["pos"][env], tex["rot"][env]), o, d, alive & ~occ)
+            t, _ = self._sphere_trace(self._poses(tex, env), o, d, alive & ~occ)
             occ = occ | (alive & (t < DIST_LIMIT))
         return occ | self._march(tex, env, o, d, alive & ~occ, refine=False)[0]
 
@@ -401,7 +407,7 @@ class ObsRenderer:
 
     def frames(self, st, uniform, color: int = 0x999999):
         """uint8 frames (b, H, W, 3) of the states st (x (b, n, 3), poses
-        (b, k, ...)), in one pass of all spp samples."""
+        pos, rot and gap (b, k, ...)), in one pass of all spp samples."""
         x = st.x.to(self.device, self.dtype)
         b = x.shape[0]
 
@@ -411,7 +417,8 @@ class ObsRenderer:
         sdf, col, lower = self.volume(x, color)
         span = self._t(list(self.voxel_res)) * self.dx
         tex = {"sdf": sdf.reshape(-1), "col": col.reshape(-1, 3), "lo": lower, "span": span,
-               "pos": st.pos.to(self.device, self.dtype), "rot": st.rot.to(self.device, self.dtype)}
+               "pos": st.pos.to(self.device, self.dtype), "rot": st.rot.to(self.device, self.dtype),
+               "gap": st.gap.to(self.device, self.dtype)}
         W = H = self.res
         S = self.spp
         ux = torch.arange(W, device=self.device, dtype=self.dtype)[None, :, None] + draw(

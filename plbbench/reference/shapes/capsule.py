@@ -1,5 +1,6 @@
 """Capsule (plb/engine/primitive/primitives.py:31-45): a segment of
-length h along the local y axis, radius r."""
+length h along the local y axis, radius r (defaults h 0.06, r 0.03,
+`Capsule.default_config`)."""
 import torch
 
 from ..quat import qrot, to_local
@@ -16,14 +17,24 @@ def _len(d):
     return torch.sqrt((d * d).sum(-1) + 1e-14)
 
 
-def sdf(params, pos, rot, p):
-    return _len(_segment_offset(params, to_local(p, pos, rot))) - params.get("r", 0.03)
+def local_sdf(params, q):
+    """The signed distance at q in the capsule's own frame."""
+    return _len(_segment_offset(params, q)) - params.get("r", 0.03)
 
 
-def normal(params, pos, rot, p):
-    q2 = _segment_offset(params, to_local(p, pos, rot))
-    return qrot(rot, q2 / _len(q2)[..., None])
+def local_normal(params, q):
+    """The outward unit normal at q in the capsule's own frame."""
+    q2 = _segment_offset(params, q)
+    return q2 / _len(q2)[..., None]
 
 
-def bounding_radius(params):
+def sdf(params, pos, rot, p, gap):
+    return local_sdf(params, to_local(p, pos, rot))
+
+
+def normal(params, pos, rot, p, gap):
+    return qrot(rot, local_normal(params, to_local(p, pos, rot)))
+
+
+def bounding_radius(params, gap):
     return params.get("h", 0.06) / 2 + params.get("r", 0.03)

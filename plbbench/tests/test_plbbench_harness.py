@@ -150,6 +150,24 @@ def test_one_env_at_fault_reads_as_itself(B):
     assert frame_gap(frames, frames) == frame_unequal(frames, frames) == 0.0
 
 
+def test_a_value_that_is_not_finite_fails_every_number():
+    """A NaN on either side is no rounding: the bulk does not leave it out,
+    and the worst of several numbers is NaN, which no limit passes."""
+    import math
+
+    from compare import bulk_rel_per_env, bulk_rms_per_env, rel_per_env, worst
+
+    gen = torch.Generator().manual_seed(6)
+    ref = torch.randn(4, 100, 3, generator=gen, dtype=torch.float64)
+    port = ref + 1e-6 * torch.randn(4, 100, 3, generator=gen, dtype=torch.float64)
+    port[2, 7, 1] = math.nan
+    assert math.isnan(bulk_rel_per_env(port, ref, ref))
+    assert math.isnan(bulk_rms_per_env(port, ref, 0.01))
+    assert math.isnan(rel_per_env(port, ref, torch.zeros_like(ref)))
+    assert math.isnan(worst(0.0, 1e-3, math.nan)) and worst(0.0, 1e-3) == 1e-3
+    assert not math.nan <= 1.0
+
+
 # -- whole runs on the CPU -----------------------------------------------------
 
 def _cpu_run(name, control=False, seconds=2.0, seed=2 ** 31 + 77):

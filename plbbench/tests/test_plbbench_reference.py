@@ -8,8 +8,9 @@ Tolerances and their reasons:
   float64; the gap measured here is 3e-5 to 2e-4.
 - loss and reward, relative to the loss: 1e-5 (float32 sums over the 64^3
   grid; measured 1e-7 to 8e-6).
-- frames: a mean absolute difference under 5 of 255 levels and 90% of the
-  pixels equal. The reference marches at fixed steps, the program skips far
+- frames (Writer-v1's Capsule, Chopsticks-v1's two sticks at their gap):
+  a mean absolute difference under 5 of 255 levels and 90% of the pixels
+  equal. The reference marches at fixed steps, the program skips far
   cells and samples bf16 textures; where a hit moves by a step's fraction,
   a shadow ray from just above the surface can flip between lit and
   occluded. Measured: 2.6 levels, 94% of the pixels equal.
@@ -21,21 +22,29 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import BENCH
+from conftest import BENCH, task_goal, task_spec
 
 FIELDS = ("x", "v", "C", "F", "prim_pos", "prim_rot", "prim_gap")
 
 
 def _setup(name, B, obs_mode="state", seed=11):
+    """A configuration of the benchmark by name, or else a task's v1 spec
+    (`chopsticks-v1`) as a configuration file would hold it."""
     from plasticinelab_tpu_torch.config.loader import scene_from_dict
     from plasticinelab_tpu_torch.parallel.rollout import VecPlasticineEnv
 
     import inputs
     from reference.scene import scene_of
 
-    with open(os.path.join(BENCH, "configs", name + ".json")) as f:
-        cfg = json.load(f)
-    cloud, goal = inputs.task_cloud(cfg["spec"]), inputs.goal_grid(cfg)
+    path = os.path.join(BENCH, "configs", name + ".json")
+    if os.path.exists(path):
+        with open(path) as f:
+            cfg = json.load(f)
+        goal = inputs.goal_grid(cfg)
+    else:
+        cfg = {"spec": task_spec(name.split("-")[0])}
+        goal = task_goal(cfg["spec"])
+    cloud = inputs.task_cloud(cfg["spec"])
     env = VecPlasticineEnv(None, batch=B, seed=seed, jitter=1e-3,
                            scene=scene_from_dict(cfg["spec"]), target_density=goal,
                            particles=cloud, obs_mode=obs_mode, device="cpu")
@@ -73,11 +82,12 @@ def test_one_env_step_matches_the_program(name):
     assert float(((reward.double() - ref_reward) / loss).abs().max()) < 1e-5
 
 
-def test_one_rgb_frame_matches_the_program():
+@pytest.mark.parametrize("name", ["writer-v1", "chopsticks-v1"])
+def test_one_rgb_frame_matches_the_program(name):
     from reference import mpm
     from reference.render import ObsRenderer, Replay
 
-    cfg, sc, goal, env, inputs = _setup("writer-v1", 2, "rgb")
+    cfg, sc, goal, env, inputs = _setup(name, 2, "rgb")
     draws, inner = [], env._renderer.uniform
 
     def recording(shape):
@@ -107,3 +117,28 @@ def test_the_svd_is_proper_and_exact():
     assert float((mpm.det3(V) - 1).abs().max()) < 1e-12
     ref = torch.linalg.svdvals(F)
     assert np.allclose(s.abs().sort(-1, descending=True)[0].numpy(), ref.numpy(), atol=1e-12)
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-29])
+def test_the_svd_of_a_particle_squeezed_flat_is_a_rotation(scale):
+    """F of rank 1 (a particle squeezed to a line, as a RollingPin or the
+    Chopsticks leave a few on the card, at sizes down to 1e-29) and of rank
+    0: U and V are rotations, F is rebuilt, the stress is finite."""
+    from reference import mpm
+    from reference.scene import scene_of
+
+    gen = torch.Generator().manual_seed(1)
+    a = torch.randn(400, 3, 1, generator=gen, dtype=torch.float64)
+    b = torch.randn(400, 1, 3, generator=gen, dtype=torch.float64)
+    F = torch.cat([a @ b, torch.zeros(1, 3, 3, dtype=torch.float64)]) * scale
+    U, s, V = mpm.svd_proper(F)
+    eye = torch.eye(3, dtype=torch.float64)
+    for Q in (U, V):
+        assert float((Q.transpose(-1, -2) @ Q - eye).abs().max()) < 1e-6
+        assert float((mpm.det3(Q) - 1).abs().max()) < 1e-6
+    rebuilt = U @ torch.diag_embed(s) @ V.transpose(-1, -2)
+    assert float((rebuilt - F).abs().max()) < 1e-7 * float(F.abs().max())
+    with open(os.path.join(BENCH, "configs", "move-v1.json")) as f:
+        sc = scene_of(json.load(f)["spec"])
+    new_F, affine = mpm.stress_affine(sc, torch.zeros_like(F), F)
+    assert bool(torch.isfinite(new_F).all() and torch.isfinite(affine).all())
