@@ -51,7 +51,10 @@ whatever B.
 The wrapper takes the plain version only for a CPU tensor; for a CUDA
 tensor it launches the kernel (float32, contiguous) or raises, and so does
 the backward. `launches` (the counter group `cuda_gridop`) counts kernel
-launches; each launch runs in a `plb.kernel.<name>` span.
+launches; each launch runs in a `plb.kernel.<name>` span. `templates` (the
+group `cuda_gridop_template`) counts the same launches, forward and
+backward, by the kernels' instantiation: `spheres` for a scene of Spheres
+alone, `all_shapes` for any other (`template_of`).
 """
 from __future__ import annotations
 
@@ -66,6 +69,7 @@ from . import primitives as prim
 
 launches = counter_group("cuda_gridop", ("grid_op", "grid_op_bwd", "grid_op_batched",
                                          "grid_op_bwd_batched"))
+templates = counter_group("cuda_gridop_template", ("spheres", "all_shapes"))
 
 # csrc/gridop.cu kBwdTiles x kThreads: an env's cells per block of the
 # backward, which sizes its scratch
@@ -77,8 +81,18 @@ SHAPE_IDS = {"Sphere": 0, "Capsule": 1, "RollingPin": 1, "Chopsticks": 2,
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for group in (launches, templates):
+        for k in group:
+            group[k] = 0
+
+
+def template_of(scene: SceneSpec) -> str:
+    """The instantiation of the grid kernels that a launch on `scene` takes,
+    as `all_spheres` (csrc/gridop.cu) picks it: "spheres" where every
+    primitive is a Sphere (no primitive too), else "all_shapes"."""
+    sphere = SHAPE_IDS["Sphere"]
+    return ("spheres" if all(SHAPE_IDS[p.shape] == sphere for p in scene.primitives)
+            else "all_shapes")
 
 
 def grid_coords(G: int, device) -> torch.Tensor:
@@ -247,6 +261,7 @@ def _launch_fwd(scene: SceneSpec, grid4, poses, softness):
         name = cb.launch_key("grid_op", grid4)
         cb.check(err, name)
         launches[name] += 1
+        templates[template_of(scene)] += 1
         return out
 
 
@@ -274,6 +289,7 @@ def grid_op_bwd(scene: SceneSpec, grid4, poses, softness, ct):
         name = cb.launch_key("grid_op_bwd", grid4)
         cb.check(err, name)
         launches[name] += 1
+        templates[template_of(scene)] += 1
         return dgrid4, dposes
 
 

@@ -16,7 +16,9 @@ captures a device trace; `trace` here does the same with torch.profiler.
   dict, `snapshot()` reads every group as `{"<group>.<key>": int}`,
   `reset()` zeroes them. The kernel wrappers count their launches in the
   groups `cuda_stress`, `cuda_transfer`, `cuda_gridop` and `cuda_voxelize`,
-  the renderer its march steps in `render.march_iters`, the manipulators
+  the grid update's launches again by instantiation in
+  `cuda_gridop_template` (`.spheres`, `.all_shapes`), the renderer its
+  march steps in `render.march_iters`, the manipulators
   their constant vectors in `primitives.consts_built` / `.consts_reused`.
 - `trace(path)` profiles a block (CPU, and CUDA where there is a card) and
   writes a chrome trace to `path`, viewable in ui.perfetto.dev or
